@@ -1,0 +1,70 @@
+"""Model factory: port of ``composer_tpu/models/__init__.py::create_model``.
+
+``ModelType`` and ``get_event_vocab_size`` come from the JAX package, whose
+models module imports JAX only inside functions.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from composer_tpu.exceptions import InvalidParameterError
+from composer_tpu.models import ModelType, get_event_vocab_size
+
+__all__ = ["ModelType", "create_model", "get_event_vocab_size"]
+
+
+def _compute_dtype(model_section, device) -> torch.dtype:
+    """bfloat16 on a CUDA device when the config asks for mixed precision,
+    float32 elsewhere (CPU runs stay float32, as in the JAX package)."""
+    if torch.device(device).type != "cuda":
+        return torch.float32
+    if bool(model_section.get("mixed_precision", False)):
+        logging.getLogger(__name__).info("mixed_precision: bfloat16 compute enabled")
+        return torch.bfloat16
+    return torch.float32
+
+
+def create_model(model_type: ModelType, config, device="cpu", **overrides):
+    """Builds the module for ``model_type`` from the YAML config.
+
+    Returns ``(module, vocab_size)``. Parameters are initialised with the
+    Flax initializers from torch's default generator; load real weights with
+    ``load_state_dict``.
+    """
+    from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
+
+    vocab_size = get_event_vocab_size(config)
+    if model_type == ModelType.TRANSFORMER:
+        section = config.transformer.model
+        overrides.setdefault("dtype", _compute_dtype(section, device))
+        model_config = TransformerConfig(
+            vocab_size=vocab_size,
+            embed_dim=int(section.embedding_size),
+            window_size=int(section.window_size),
+            num_layers=int(section.decoder_layers_count),
+            num_heads=int(section.attention_head_count),
+            use_relative_attention=bool(section.use_relative_attention),
+            attention_dropout_rate=float(section.attention_dropout_rate),
+            residual_dropout_rate=float(section.residual_dropout_rate),
+            layer_norm_epsilon=float(section.layer_normalization_epsilon),
+            scale_attention=bool(section.scale_attention),
+            initializer_mean=float(section.initializer_mean),
+            initializer_stddev=float(section.initializer_stddev),
+            use_layer_norm=bool(section.use_layer_normalization),
+            band_block_size=int(section.get("band_block_size", 128)),
+            attention_chunk_size=int(section.get("attention_chunk_size", 0)),
+            remat=bool(section.get("remat", False)),
+            use_pallas_attention=bool(section.get("use_pallas_attention", False)),
+            **overrides,
+        )
+        return Transformer(model_config, device=device), vocab_size
+
+    if model_type == ModelType.MUSIC_RNN:
+        raise NotImplementedError(
+            "MusicRNN is not ported yet (ROADMAP.md, Queue 1 item 6)."
+        )
+
+    raise InvalidParameterError(f"Unrecognized model type: '{model_type}'.")

@@ -1,0 +1,255 @@
+"""Music Transformer: a decoder-only LM with optional relative attention.
+
+Port of ``composer_tpu/models/transformer.py``. GPT-2 style: tied token
+embedding, learned positional embedding, N pre-LN decoder blocks (attention
+plus a 4x tanh-GELU MLP), final LayerNorm, tied output head. Parameter names
+follow the Flax tree (``wte``, ``wpe``, ``h_{i}.ln_1``, ``h_{i}.attn.c_attn``,
+``h_{i}.attn.rel_embedding`` ...), so ``models/convert.py`` maps one onto the
+other name by name.
+
+Quirks carried over from the reference:
+
+* the residual adds the attention output to the **ln_1 output**, not to the
+  block input;
+* GELU is the tanh approximation;
+* logits are tied to ``wte``;
+* positions are ``cache_index + arange(seq)``, clamped to ``window - 1``
+  (the JAX gather clamps out-of-range indices the same way).
+
+``config.dtype`` is the compute dtype: parameters (``param_dtype``) are cast
+to it inside ``forward``, as Flax's ``dtype`` does. Dropout only matters in
+training and is off on this path.
+
+The KV cache is a dict ``{"index": int, "layers": [{"k", "v"}]}`` of
+``[B, H, S, D]`` buffers. Unlike the functional JAX module, ``forward``
+writes the new keys and values into those buffers in place (no copy of the
+cache per token) and returns the dict with the advanced index.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from composer_tpu_torch.ops import attention as attention_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int
+    embed_dim: int = 256
+    window_size: int = 1024
+    num_layers: int = 8
+    num_heads: int = 16
+    use_relative_attention: bool = False
+    attention_dropout_rate: float = 0.1
+    residual_dropout_rate: float = 0.1
+    layer_norm_epsilon: float = 1e-5
+    scale_attention: bool = True
+    initializer_mean: float = 0.0
+    initializer_stddev: float = 0.02
+    use_layer_norm: bool = True
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+    # Accepted for config compatibility; the plain attention computes the
+    # same function as the JAX package's flash, chunked and band branches.
+    use_pallas_attention: bool = False
+    attention_chunk_size: int = 0
+    band_block_size: int = 128
+    remat: bool = False
+    flash_mesh: Any = None
+
+    @property
+    def head_dim(self) -> int:
+        if self.embed_dim % self.num_heads:
+            raise ValueError(
+                f"embed_dim {self.embed_dim} is not divisible by num_heads "
+                f"{self.num_heads}"
+            )
+        return self.embed_dim // self.num_heads
+
+
+def init_cache(config: TransformerConfig, batch_size: int, max_length: int,
+               dtype=None, device=None):
+    """Preallocated KV cache: per layer ``[B, H, S, D]`` k/v buffers plus the
+    fill index."""
+    dtype = dtype or config.dtype
+    shape = (batch_size, config.num_heads, max_length, config.head_dim)
+    return {
+        "index": 0,
+        "layers": [
+            {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(config.num_layers)
+        ],
+    }
+
+
+def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
+    # Statistics in f32 (Flax promotes the same way), output in compute dtype.
+    return F.layer_norm(
+        x.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(),
+        norm.eps,
+    ).to(dtype)
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class SelfAttention(nn.Module):
+    """Fused-QKV causal self-attention with optional relative bias."""
+
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        self.config = config
+        e = config.embed_dim
+        self.c_attn = nn.Linear(e, 3 * e, dtype=config.param_dtype)
+        self.c_proj = nn.Linear(e, e, dtype=config.param_dtype)
+        if config.use_relative_attention:
+            self.rel_embedding = nn.Parameter(torch.empty(
+                config.num_heads, config.window_size, config.head_dim,
+                dtype=config.param_dtype,
+            ))
+        else:
+            self.rel_embedding = None
+
+    def forward(self, x, layer_cache=None, cache_index=None):
+        config = self.config
+        dtype = config.dtype
+        batch, seq, _ = x.shape
+        q, k, v = _dense(self.c_attn, x, dtype).chunk(3, dim=-1)
+
+        def heads(t):
+            return t.reshape(batch, seq, config.num_heads, config.head_dim).transpose(1, 2)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        rel = self.rel_embedding.to(dtype) if self.rel_embedding is not None else None
+
+        q_position = None
+        if layer_cache is not None:
+            layer_cache["k"][:, :, cache_index:cache_index + seq] = k
+            layer_cache["v"][:, :, cache_index:cache_index + seq] = v
+            if seq == 1:
+                # Incremental decode: attend over the whole cache; the causal
+                # mask follows from the absolute query position.
+                k, v = layer_cache["k"], layer_cache["v"]
+                q_position = cache_index
+            # Prefill (from index 0) is the square self-attention over the
+            # written prefix: the same math as the uncached forward.
+
+        out = attention_ops.multihead_attention(
+            q, k, v, rel_embedding=rel, q_position=q_position,
+            scale=config.scale_attention,
+        )
+        out = out.transpose(1, 2).reshape(batch, seq, config.embed_dim)
+        return _dense(self.c_proj, out, dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        self.config = config
+        e = config.embed_dim
+        self.c_fc = nn.Linear(e, 4 * e, dtype=config.param_dtype)
+        self.c_proj = nn.Linear(4 * e, e, dtype=config.param_dtype)
+
+    def forward(self, x):
+        dtype = self.config.dtype
+        hidden = F.gelu(_dense(self.c_fc, x, dtype), approximate="tanh")
+        return _dense(self.c_proj, hidden, dtype)
+
+
+class DecoderBlock(nn.Module):
+    """Pre-LN decoder block with the reference's residual quirk."""
+
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        self.config = config
+        eps = config.layer_norm_epsilon
+        if config.use_layer_norm:
+            self.ln_1 = nn.LayerNorm(config.embed_dim, eps=eps, dtype=config.param_dtype)
+            self.ln_2 = nn.LayerNorm(config.embed_dim, eps=eps, dtype=config.param_dtype)
+        self.attn = SelfAttention(config)
+        self.mlp = Mlp(config)
+
+    def forward(self, x, layer_cache=None, cache_index=None):
+        dtype = self.config.dtype
+        h = _layer_norm(self.ln_1, x, dtype) if self.config.use_layer_norm else x
+        # The attention output is added to the *normalized* input.
+        x = h + self.attn(h, layer_cache, cache_index)
+        m = _layer_norm(self.ln_2, x, dtype) if self.config.use_layer_norm else x
+        return x + self.mlp(m)
+
+
+class Transformer(nn.Module):
+    """The decoder-only LM. ``forward`` returns ``(logits, new_cache)``."""
+
+    def __init__(self, config: TransformerConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.wte = nn.Parameter(torch.empty(
+            config.vocab_size, config.embed_dim, dtype=config.param_dtype))
+        self.wpe = nn.Parameter(torch.empty(
+            config.window_size, config.embed_dim, dtype=config.param_dtype))
+        for layer in range(config.num_layers):
+            self.add_module(f"h_{layer + 1}", DecoderBlock(config))
+        self.ln_f = nn.LayerNorm(config.embed_dim, eps=config.layer_norm_epsilon,
+                                 dtype=config.param_dtype)
+        self.reset_parameters()
+        if device is not None:
+            self.to(device)
+
+    @property
+    def blocks(self):
+        return [getattr(self, f"h_{layer + 1}") for layer in range(self.config.num_layers)]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Flax's initializers: truncated normal (+-2 std) matmul and
+        embedding weights, zero biases, unit LayerNorm scales and a Glorot
+        uniform relative table."""
+        std = self.config.initializer_stddev
+        # Flax rescales so the truncated distribution keeps stddev ``std``.
+        scaled = std / 0.87962566103423978
+
+        def normal(t):
+            nn.init.trunc_normal_(t, 0.0, scaled, -2 * scaled, 2 * scaled, generator=generator)
+
+        normal(self.wte)
+        normal(self.wpe)
+        for block in self.blocks:
+            for layer in (block.attn.c_attn, block.attn.c_proj, block.mlp.c_fc, block.mlp.c_proj):
+                normal(layer.weight)
+                nn.init.zeros_(layer.bias)
+            rel = block.attn.rel_embedding
+            if rel is not None:
+                fan_in = rel.shape[1] * rel.shape[2]
+                fan_out = rel.shape[0] * rel.shape[2]
+                bound = math.sqrt(6.0 / (fan_in + fan_out))
+                nn.init.uniform_(rel, -bound, bound, generator=generator)
+
+    def forward(self, tokens: torch.Tensor, cache=None):
+        config = self.config
+        dtype = config.dtype
+        _, seq = tokens.shape
+        cache_index = cache["index"] if cache is not None else 0
+        positions = torch.arange(seq, device=tokens.device) + cache_index
+        positions = positions.clamp(max=config.window_size - 1)
+        h = self.wte.to(dtype)[tokens] + self.wpe.to(dtype)[positions][None]
+
+        for layer, block in enumerate(self.blocks):
+            layer_cache = cache["layers"][layer] if cache is not None else None
+            h = block(h, layer_cache, cache_index if cache is not None else None)
+
+        h = _layer_norm(self.ln_f, h, dtype)
+        logits = torch.einsum("bse,ve->bsv", h, self.wte.to(dtype))
+        new_cache = None
+        if cache is not None:
+            new_cache = {"index": cache_index + seq, "layers": cache["layers"]}
+        return logits, new_cache

@@ -1,0 +1,350 @@
+"""Autoregressive generation: port of ``composer_tpu/train/generate.py``.
+
+Two engines, as in the JAX package:
+
+* the fused kernel (``TransformerDecoder``): one launch of the Hopper kernel
+  ``decode_generate`` consumes the prompt and samples every new token;
+  prompts whose common prefix is at least ``COMPOSER_PREFILL_MIN`` tokens
+  (default 64) first run one batched prefill forward and hand its cache to
+  the kernel;
+* the unfused path (``engine="xla"``, the JAX package's name for it): a
+  prefill forward, then one cached forward and one sampling call per token.
+
+Routing (``generate_ids``): ``auto`` sends every transformer with layer norm
+to the kernel on a CUDA device, at batch 1 and above, and to the unfused
+path on the CPU. ``megakernel`` runs the kernel on CUDA and its plain
+PyTorch version on the CPU. ``xla`` runs the unfused path. The JAX package's
+``wide`` and ``spec`` engines are not ported yet; on the TPU, batch-1 greedy
+``auto`` goes to ``spec``, here it goes to the fused kernel.
+
+Positions past ``window_size`` clamp to the last learned position embedding.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from composer_tpu.models import ModelType
+from composer_tpu_torch.models.transformer import init_cache
+from composer_tpu_torch.ops import decode_kernel as dk
+from composer_tpu_torch.ops.decode_kernel_batched import kernel_fits, megakernel_generate_batched
+from composer_tpu_torch.ops.sampling import sample_filtered_rows
+
+
+def _apply(model, params, tokens, cache):
+    """The model's forward with ``params`` (a state_dict) or, for None, its
+    own parameters."""
+    if params is None:
+        return model(tokens, cache)
+    return torch.func.functional_call(model, params, (tokens, cache))
+
+
+def _device(model, params) -> torch.device:
+    source = params.values() if params is not None else model.parameters()
+    return next(iter(source)).device
+
+
+def _prefill(model, params, prompt, generator, cache_len: int, temperature, top_k, top_p):
+    cache = init_cache(model.config, prompt.shape[0], cache_len, device=prompt.device)
+    logits, cache = _apply(model, params, prompt, cache)
+    token = sample_filtered_rows(generator, logits[:, -1], temperature, top_k, top_p)
+    return cache, token
+
+
+def _grow_cache(cache, new_len: int):
+    """Zero-pads the cache's sequence axis (the fill index is unchanged)."""
+    def pad(buf):
+        return torch.nn.functional.pad(buf, (0, 0, 0, new_len - buf.shape[2]))
+
+    return {
+        "index": cache["index"],
+        "layers": [{"k": pad(layer["k"]), "v": pad(layer["v"])} for layer in cache["layers"]],
+    }
+
+
+def _decode_segment(model, params, cache, token, generator, steps: int, temperature,
+                    top_k, top_p):
+    """``steps`` cached one-token forwards; returns the inputs it consumed."""
+    consumed = []
+    for _ in range(steps):
+        logits, cache = _apply(model, params, token[:, None], cache)
+        consumed.append(token)
+        token = sample_filtered_rows(generator, logits[:, 0], temperature, top_k, top_p)
+    return cache, token, torch.stack(consumed, dim=1)
+
+
+def _ragged_transformer_generate(model, params, prompt, plens, generator, length: int,
+                                 cache_len: int, temperature, top_k, top_p):
+    """Ragged-prompt decode on the unfused path: prefill through the shortest
+    prompt, then one token at a time, each row forced to its own prompt
+    token while the step is inside its prefix. Row s's ``length`` ids start
+    at sample ``plens[s] - min(plens)``."""
+    batch, width = prompt.shape
+    plens = np.asarray(plens, np.int32).reshape(-1)
+    min_plen = int(plens.min())
+    if min_plen < 1 or plens.max() > width:
+        raise ValueError(
+            f"prompt_lengths must lie in [1, {width}], got [{plens.min()}, {plens.max()}]"
+        )
+    num_steps = width + length - 1
+    cache, token = _prefill(model, params, prompt[:, :min_plen], generator, cache_len,
+                            temperature, top_k, top_p)
+    plens_t = torch.as_tensor(plens, device=prompt.device).long()
+    samples = [token]
+    for position in range(min_plen, num_steps):
+        forced = prompt[:, min(position, width - 1)]
+        token = torch.where(position < plens_t, forced, token)
+        logits, cache = _apply(model, params, token[:, None], cache)
+        token = sample_filtered_rows(generator, logits[:, 0], temperature, top_k, top_p)
+        samples.append(token)
+    stack = torch.stack(samples, dim=1)
+    gather = (plens_t - min_plen)[:, None] + torch.arange(length, device=prompt.device)[None]
+    return torch.gather(stack, 1, gather)
+
+
+def _transformer_generate(model, params, prompt, generator, length: int, cache_len: int,
+                          temperature, top_k, top_p):
+    """KV-cached decode with staged cache growth (256, 512, ...): each step
+    attends over the current stage, not the whole final cache."""
+    batch, prompt_len = prompt.shape
+    if prompt_len + length > cache_len:
+        raise ValueError(
+            f"prompt ({prompt_len}) + length ({length}) exceeds cache ({cache_len})"
+        )
+    stage = 256
+    while stage < prompt_len + 1:
+        stage *= 2
+    stage = min(stage, cache_len)
+    cache, token = _prefill(model, params, prompt, generator, stage, temperature, top_k, top_p)
+
+    chunks = []
+    position = prompt_len  # cache slot the next decode step writes
+    remaining = length - 1
+    while remaining > 0:
+        capacity = stage - position
+        if capacity <= 0:
+            stage = min(max(stage * 2, 256), cache_len)
+            cache = _grow_cache(cache, stage)
+            continue
+        steps = min(remaining, capacity)
+        cache, token, tokens = _decode_segment(
+            model, params, cache, token, generator, steps, temperature, top_k, top_p
+        )
+        chunks.append(tokens)
+        position += steps
+        remaining -= steps
+    chunks.append(token[:, None])
+    return torch.cat(chunks, dim=1)
+
+
+def _normalize_sampling(batch: int, temperature, top_k, top_p):
+    """Scalar-or-per-row sampling values -> per-row ``(batch,)`` numpy vectors."""
+    def vec(value, dtype, name):
+        arr = np.asarray(value, dtype).reshape(-1)
+        if arr.shape[0] == 1 and batch != 1:
+            arr = np.broadcast_to(arr, (batch,))
+        if arr.shape[0] != batch:
+            raise ValueError(
+                f"{name} must be a scalar or a length-{batch} vector, "
+                f"got shape {np.asarray(value).shape}"
+            )
+        return np.ascontiguousarray(arr)
+
+    return (
+        vec(temperature, np.float32, "temperature"),
+        vec(top_k, np.int32, "top_k"),
+        vec(top_p, np.float32, "top_p"),
+    )
+
+
+def _padded_cache_len(cache_len: int) -> int:
+    # The kernel's cache rows line up with the JAX package's 128-row padding.
+    return max(-(-cache_len // 128) * 128, 128)
+
+
+def _prefill_min_tokens() -> int:
+    """Shortest common prompt prefix that gets a separate prefill forward
+    (``COMPOSER_PREFILL_MIN``, default 64; <= 0 disables it)."""
+    try:
+        return int(os.environ.get("COMPOSER_PREFILL_MIN", "64"))
+    except ValueError:
+        return 64
+
+
+class TransformerDecoder:
+    """The fused-kernel engine: packs the weights once; each ``generate`` is
+    one kernel launch, after an optional prefill forward for long prompts.
+
+    Greedy ids are identical with or without the prefill; sampled streams
+    shift, because the kernel's draws start at the prefill's end.
+    """
+
+    def __init__(self, model, params=None, dtype=torch.bfloat16):
+        self.model = model
+        self.config = model.config
+        self.params = params
+        self.device = _device(model, params)
+        self.weights_key = _weights_key(model, params)
+        state = params if params is not None else model.state_dict()
+        self.packed = dk.pack_weights(state, model.config, dtype=dtype, device=self.device)
+
+    def _prefill_rows(self, prefix, cache_len: int):
+        """One batched forward over the shared prompt prefix, exported into
+        the kernel's ``(L, B*C, E)`` rows."""
+        cache = init_cache(self.config, prefix.shape[0], prefix.shape[1], device=self.device)
+        _, cache = _apply(self.model, self.params, prefix, cache)
+        return dk.cache_to_rows_batched(cache, self.config, cache_len, self.packed["wte"].dtype)
+
+    def generate(self, prompt, length, temperature=1.0, seed=0, cache_len=None,
+                 top_k=0, top_p=0.0, prompt_lengths=None):
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        if cache_len is None:
+            cache_len = prompt.shape[1] + length
+        cache_len = _padded_cache_len(cache_len)
+        temps, topks, topps = _normalize_sampling(prompt.shape[0], temperature, top_k, top_p)
+        if prompt_lengths is None:
+            plens = np.full(prompt.shape[0], prompt.shape[1], np.int32)
+        else:
+            plens = np.asarray(prompt_lengths, np.int32).reshape(-1)
+            if prompt.shape[0] == 1:
+                # Batch 1 is never ragged: trim the padding off the one row.
+                prompt = prompt[:, : int(plens[0])]
+                plens = np.full(1, prompt.shape[1], np.int32)
+        ragged = bool((plens != prompt.shape[1]).any())
+
+        # Parallel prefill for long prompts: one forward covers the common
+        # prefix (min prompt length - 1: the last prompt token stays with
+        # the kernel, whose step consumes it and samples), bucketed to
+        # multiples of 64.
+        prefill_min = _prefill_min_tokens()
+        start = int(plens.min()) - 1
+        if prefill_min <= 0 or start < prefill_min:
+            start = 0
+        elif start >= 64:
+            start = (start // 64) * 64
+
+        greedy, use_k, use_p = dk.sampling_flags(temps, topks, topps)
+        tokens = torch.as_tensor(prompt).to(self.device)
+        prefill_rows = self._prefill_rows(tokens[:, :start].long(), cache_len) if start else None
+        return megakernel_generate_batched(
+            self.packed, tokens, seed, temps, config=self.config, length=length,
+            cache_len=cache_len, top_k=topks, top_p=topps, greedy=greedy,
+            use_k=use_k, use_p=use_p, prompt_lengths=plens if ragged else None,
+            prefill_rows=prefill_rows, start_step=start,
+        )
+
+
+def _weights_key(model, params) -> tuple:
+    """Storage and version counter of every weight tensor: any in-place
+    update (``load_state_dict``, an optimizer step, ``reset_parameters``) or
+    move changes it."""
+    state = params if params is not None else model.state_dict()
+    return tuple((t.data_ptr(), t._version) for t in state.values())
+
+
+_ENGINE_CACHE: dict = {}
+
+
+def _packed_engine(model, params) -> TransformerDecoder:
+    """One packed engine kept alive, keyed on the model and params objects
+    and on their weights' versions, so changed weights are packed anew."""
+    engine = _ENGINE_CACHE.get("engine")
+    if (engine is None or engine.model is not model or engine.params is not params
+            or engine.weights_key != _weights_key(model, params)):
+        engine = TransformerDecoder(model, params)
+        _ENGINE_CACHE["engine"] = engine
+    return engine
+
+
+def _use_kernel(model, model_type, cache_len: int, engine: str, device) -> bool:
+    if engine == "wide":
+        raise NotImplementedError(
+            "engine='wide' is not ported yet (ROADMAP.md, Queue 2 items 7 and 8)."
+        )
+    if engine == "spec":
+        raise NotImplementedError(
+            "engine='spec' is not ported yet (ROADMAP.md, Queue 2 item 6)."
+        )
+    if engine not in ("auto", "megakernel", "xla"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "xla" or model_type != ModelType.TRANSFORMER:
+        return False
+    if not model.config.use_layer_norm:
+        # The kernel hard-codes the pre-LN block; norm-free models stay unfused.
+        return False
+    if not kernel_fits(model.config, _padded_cache_len(cache_len)):
+        return False
+    return engine == "megakernel" or device.type == "cuda"
+
+
+@torch.no_grad()
+def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
+                 length: int = 1024, temperature: float = 1.0, seed: int = 0,
+                 cache_len: Optional[int] = None, engine: str = "auto", top_k: int = 0,
+                 top_p: float = 0.0, prompt_lengths=None) -> np.ndarray:
+    """Generates ``length`` new event ids after ``prompt_ids``.
+
+    prompt_ids: int array ``[batch, prompt_len]`` (or ``[prompt_len]``).
+    Returns ``[batch, prompt_len + length]`` on the host, prompt included.
+    ``params_or_variables`` is a ``state_dict`` for ``model`` or None for
+    the module's own parameters.
+
+    ``prompt_lengths``: per-row real prompt lengths when rows are padded to
+    a common width; row s's generated ids are still columns
+    ``[prompt_len, prompt_len + length)``. ``temperature``/``top_k``/
+    ``top_p`` are scalars or per-row vectors; a row with temperature <= 0
+    decodes greedily. ``engine``: ``auto``, ``megakernel`` or ``xla`` (see
+    the module docstring).
+    """
+    if isinstance(prompt_ids, torch.Tensor):
+        prompt_ids = prompt_ids.cpu().numpy()
+    prompt_host = np.asarray(prompt_ids, dtype=np.int32)
+    squeeze = prompt_host.ndim == 1
+    if squeeze:
+        prompt_host = prompt_host[None]
+    if model_type != ModelType.TRANSFORMER:
+        raise NotImplementedError(
+            "MusicRNN generation is not ported yet (ROADMAP.md, Queue 1 item 6)."
+        )
+    temps, topks, topps = _normalize_sampling(prompt_host.shape[0], temperature, top_k, top_p)
+    # Off values normalize to the canonical "disabled" encoding.
+    topks = np.where(topks > 0, topks, 0)
+    topps = np.where((topps > 0.0) & (topps < 1.0), topps, 0.0).astype(np.float32)
+
+    plens = None
+    if prompt_lengths is not None:
+        plens = np.asarray(prompt_lengths, np.int32).reshape(-1)
+        if np.all(plens == prompt_host.shape[1]):
+            plens = None  # uniform: the fixed-length paths
+
+    if cache_len is None:
+        cache_len = prompt_host.shape[1] + length
+    device = _device(model, params_or_variables)
+    if _use_kernel(model, model_type, cache_len, engine, device):
+        generated = _packed_engine(model, params_or_variables).generate(
+            prompt_host, length, temperature=temps, seed=seed,
+            cache_len=cache_len, top_k=topks, top_p=topps, prompt_lengths=plens,
+        )
+    else:
+        prompt = torch.as_tensor(prompt_host, device=device).long()
+        generator = torch.Generator(device=device).manual_seed(seed)
+        warpers = (torch.as_tensor(temps, device=device), torch.as_tensor(topks, device=device),
+                   torch.as_tensor(topps, device=device))
+        if plens is not None:
+            generated = _ragged_transformer_generate(
+                model, params_or_variables, prompt, plens, generator, length, cache_len,
+                *warpers,
+            )
+        else:
+            generated = _transformer_generate(
+                model, params_or_variables, prompt, generator, length, cache_len, *warpers,
+            )
+
+    result = np.concatenate([prompt_host, generated.cpu().numpy().astype(np.int32)], axis=1)
+    return result[0] if squeeze else result
