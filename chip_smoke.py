@@ -46,6 +46,23 @@ Phases (any failure exits non-zero):
    printed. Then the flash kernels, their plain version and, as a
    yardstick the port never calls, ``scaled_dot_product_attention`` are
    timed with CUDA events at the same shapes.
+6. The speculative kernel ``spec_decode`` (csrc/spec_decode.cu) against its
+   plain PyTorch version in float32: identical tokens and stats, greedy and
+   sampled, relative attention off and on, blocks 2, 3, 5 and 11 at 64
+   steps with cache 128 at the default widths, block 16 on a narrower
+   model, and the main path's shape 1 x (10 + 1014), cache 1024, greedy at
+   T=5 and sampled at T=3. Then ``generate_ids(engine="auto",
+   temperature=0)`` at batch 1 with bfloat16 weights, on random weights and
+   on phase 5's restored model (relative attention off): the speculative
+   kernel's launch count must rise and the sequential kernel's must not,
+   ids must lie in the vocabulary, and a MIDI file is written. Each bf16
+   run's tokens, and those of the timed kernel call, are teacher-forced
+   through the plain version's bf16 forward: every emitted token's logit
+   must lie within 2% of the logits' scale of its row's maximum. The id
+   agreement with the sequential kernel (not asserted: bf16 near-ties
+   flip), the realized acceptance (tokens per generation block), events/s
+   of both engines, and the kernel's, the sequential kernel's and the
+   plain version's times are printed.
 
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
@@ -551,7 +568,7 @@ def train_path(device, card: str, prompt) -> dict:
     from composer_tpu_torch.train.checkpoint import CheckpointManager
     from composer_tpu_torch.train.trainer import Trainer
 
-    results = {"fwd": 0, "bwd": 0}
+    results = {"fwd": 0, "bwd": 0, "restored": None}
     expected = TRAIN_STEPS * 8  # layers x steps
     for use_relative in (False, True):
         config = get_default()
@@ -631,6 +648,8 @@ def train_path(device, card: str, prompt) -> dict:
         profile_steps(trainer, state, dataset, card)
         results["fwd"] += launches[0]
         results["bwd"] += launches[1]
+        if not use_relative:
+            results["restored"] = restored.model.eval()
     return results
 
 
@@ -719,6 +738,240 @@ def flash_timings(device, card: str) -> dict:
     return result
 
 
+def spec_check(name, packed, config, prompt, seed, sampling, block, length, cache_len):
+    """One speculative generation through the kernel and its plain version on
+    the same inputs; returns the largest |kernel - plain| over tokens and
+    stats, which must be 0."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_spec as dks
+
+    device = packed["wte"].device
+    temps, topk, topp = dk.row_params(1, packed["wte"].shape[0], *sampling, False, True, True,
+                                      "cpu")
+    args = (packed, torch.as_tensor(prompt, dtype=torch.int32).to(device), seed,
+            float(temps[0]), float(topk[0]), float(topp[0]))
+    kwargs = dict(config=config, length=length, cache_len=cache_len, block=block)
+    ours = dks.spec_decode(*args, **kwargs)
+    plain = dks.speculative_generate_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    diff = max(int((a.long() - b.long()).abs().max()) for a, b in zip(ours, plain))
+    blocks, gen_blocks, _ = ours[1].tolist()[:3]
+    print(f"spec f32 {name}: tokens and stats identical={diff == 0}, blocks {blocks}, "
+          f"generation blocks {gen_blocks}, acceptance {length / gen_blocks:.3f}, "
+          f"distinct ids {len(set(plain[0].tolist()))}", flush=True)
+    if diff:
+        raise AssertionError(f"spec kernel and plain version disagree: {name}")
+    return diff
+
+
+def spec_vs_plain(device) -> int:
+    """Phase 6a; returns the largest |kernel - plain| over tokens and stats."""
+    from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from composer_tpu_torch.ops import decode_kernel as dk
+
+    worst = 0
+    rng = np.random.default_rng(12)
+    greedy, sampled = (0.0, 0, 0.0), (1.0, 30, 0.9)
+    for use_relative in (False, True):
+        model, _ = build_model(use_relative, device)
+        config = model.config
+        packed = dk.pack_weights(model.state_dict(), config, dtype=torch.float32, device=device)
+        prompt = rng.integers(0, 390, 10)
+        for block in (2, 3, 5, 11):
+            for seed, sampling in ((0, greedy), (5, sampled)):
+                kind = "greedy" if sampling is greedy else "sampled"
+                worst = max(worst, spec_check(f"rel={use_relative} T={block} {kind}", packed,
+                                              config, prompt, seed, sampling, block, 64, 128))
+        main = np.random.default_rng(2).integers(0, 390, PROMPT_EVENTS)
+        for block, seed, sampling, kind in ((5, 0, greedy, "greedy"),
+                                            (3, 11, (1.0, 0, 0.0), "sampled")):
+            worst = max(worst, spec_check(
+                f"rel={use_relative} T={block} {kind} main shape 1 x ({PROMPT_EVENTS} + "
+                f"{GENERATE_EVENTS})", packed, config, main, seed, sampling, block,
+                GENERATE_EVENTS, 1024))
+    # Block 16 fits only narrower models (default widths: blocks <= 11).
+    config = TransformerConfig(vocab_size=390, embed_dim=64, window_size=64, num_layers=2,
+                               num_heads=4, use_relative_attention=True, initializer_stddev=0.3)
+    model = Transformer(config, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    packed = dk.pack_weights(model.state_dict(), config, dtype=torch.float32, device=device)
+    for seed, sampling in ((0, greedy), (5, sampled)):
+        worst = max(worst, spec_check(f"E=64 T=16 seed {seed}", packed, config,
+                                      rng.integers(0, 390, 10), seed, sampling, 16, 64, 128))
+    return worst
+
+
+def spec_block_starts(prompt, tokens, block: int) -> list:
+    """The start position of every verify block of a greedy speculative run,
+    replayed on the host from its prompt and output: the drafts follow the
+    kernel's rule, and a row matches when the true next token equals its
+    draft. The run's last block may accept past the output; the replay stops
+    extending it there (it is the last block either way)."""
+    from composer_tpu_torch.ops.decode_kernel_spec import draft_inputs
+
+    stream = np.concatenate([prompt, tokens]).astype(np.int64)
+    plen, T = len(prompt), block
+    ids = np.zeros(len(stream) + T + 1, np.int64)
+    ids[:plen] = prompt
+    starts, p0 = [], 0
+    while p0 < len(stream) - 1:
+        in_tok = draft_inputs(ids, p0, plen, T)
+        ids[p0:p0 + T] = in_tok
+        n = 1
+        while n < T and p0 + n < len(stream) and (p0 + n < plen or stream[p0 + n] == in_tok[n]):
+            n += 1
+        if plen <= p0 + n < len(stream):
+            ids[p0 + n] = stream[p0 + n]
+        starts.append(p0)
+        p0 += n
+    return starts
+
+
+def spec_bound(engine, prompt, tokens, blocks: int, block: int):
+    """One speculative call: the packed weights, prompt, ids and stats moved
+    once; per verified row (blocks x T, counted by replaying the run) the
+    layer GEMVs and tied logits, and attention over keys [0, position]."""
+    config = engine.config
+    E, L = config.embed_dim, config.num_layers
+    starts = spec_block_starts(prompt, tokens, block)
+    if len(starts) != blocks:
+        raise AssertionError(f"replayed {len(starts)} blocks, the kernel ran {blocks}")
+    weights = sum(t.numel() * t.element_size() for t in engine.packed.values())
+    ids = (len(prompt) + len(tokens) + 8) * 4
+    per_key = 6 if config.use_relative_attention else 4
+    keys = sum(block * p0 + block * (block + 1) // 2 for p0 in starts)
+    flops = (blocks * block * (L * 24 * E * E + 2 * E * config.vocab_size)
+             + L * per_key * E * keys)
+    return bound(weights + ids, flops)
+
+
+def spec_bf16_check(name, packed, config, prompt, tokens) -> float:
+    """A bf16 speculative run's tokens fed back through the plain version's
+    bf16 forward (teacher-forced: both see the kernel's own prefix, so
+    roundings cannot compound): every emitted token's logit must lie within
+    BF16_LOGIT_REL_TOL x the logits' scale of its row's maximum. Returns
+    the largest gap."""
+    from composer_tpu_torch.ops.decode_kernel_spec import teacher_forced_logits
+
+    tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=packed["wte"].device)
+    stream = np.concatenate([np.asarray(prompt), tokens.cpu().numpy()])
+    rows = teacher_forced_logits(packed, stream, config=config)[len(prompt) - 1:-1]
+    rows = rows[:, :config.vocab_size]
+    scale = float(rows.abs().max())
+    top = rows.max(-1)
+    gap = float((top.values - rows[torch.arange(len(tokens)), tokens]).max())
+    at_top = float((top.indices == tokens).float().mean())
+    # How sharp the rule is: the ids per row that it would let through.
+    admitted = float(((top.values[:, None] - rows) <= BF16_LOGIT_REL_TOL * scale)
+                     .float().sum(-1).mean())
+    print(f"spec bf16 {name}: teacher-forced, every emitted token within {gap:.3e} of its "
+          f"row's max logit (limit {BF16_LOGIT_REL_TOL} x scale {scale:.3f}, which admits "
+          f"{admitted:.2f} ids per row on average); tokens at the top of their row "
+          f"{at_top:.4f}", flush=True)
+    if not gap <= BF16_LOGIT_REL_TOL * scale:
+        raise AssertionError(f"spec bf16 {name}: a token's logit is {gap} below its row's "
+                             f"max > {BF16_LOGIT_REL_TOL} x {scale}")
+    return gap
+
+
+def spec_path(device, card: str, trained) -> dict:
+    """Phase 6b: batch-1 greedy generation through ``generate_ids(engine=
+    "auto")``, which runs the speculative kernel, on random weights and on
+    phase 5's restored model, against the sequential kernel on the same
+    request; then the kernel, its plain version and the sequential kernel
+    timed at the main path's shape."""
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_spec as dks
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+    from composer_tpu_torch.train import generate as gen
+
+    model, config = build_model(False, device)
+    prompt = encoded_prompt(config, PROMPT_EVENTS)
+
+    def call(m, engine):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ids = gen.generate_ids(m, ModelType.TRANSFORMER, None, prompt, length=GENERATE_EVENTS,
+                               temperature=0.0, engine=engine)  # host ids: synchronized
+        return ids, time.perf_counter() - start
+
+    launches = 0
+    for name, m in (("random weights", model), ("trained 20 steps, restored", trained)):
+        call(m, "megakernel")  # packs the weights, warms both kernels up
+        call(m, "auto")
+        dks.spec_decode.launches = 0
+        decode_generate.launches_single = decode_generate.launches_batched = 0
+        spec_ids, spec_s = call(m, "auto")
+        counts = (dks.spec_decode.launches, decode_generate.launches_single,
+                  decode_generate.launches_batched)
+        stats = gen.LAST_SPEC_STATS
+        launches += counts[0]
+        seq_ids, seq_s = call(m, "megakernel")
+        spec_ids2, spec_s2 = call(m, "auto")
+        seq_ids2, seq_s2 = call(m, "megakernel")
+        print(f"spec {name}: launches spec {counts[0]}, sequential B=1 {counts[1]}, "
+              f"batched {counts[2]}; stats {stats[:3].tolist()}, acceptance "
+              f"{GENERATE_EVENTS / stats[1]:.3f} tokens per generation block", flush=True)
+        if counts != (1, 0, 0):
+            raise AssertionError(f"greedy batch-1 auto did not run the spec kernel: {counts}")
+        generated = spec_ids[PROMPT_EVENTS:]
+        if spec_ids.shape != (PROMPT_EVENTS + GENERATE_EVENTS,) or generated.min() < 0 \
+                or generated.max() >= 390 or not np.array_equal(spec_ids, spec_ids2):
+            raise AssertionError(f"spec {name}: bad ids {spec_ids.shape}")
+        engine = gen._packed_engine(m, None)
+        spec_bf16_check(f"{name}, generate_ids", engine.packed, engine.config,
+                        spec_ids[:PROMPT_EVENTS], generated)
+        with tempfile.TemporaryDirectory() as tmp:
+            size = write_midi(spec_ids, config, Path(tmp) / "spec.mid")
+        if size <= 0:
+            raise AssertionError("the MIDI file is empty")
+        agree = float((generated == seq_ids[PROMPT_EVENTS:]).mean())
+        first = int(np.argmax(generated != seq_ids[PROMPT_EVENTS:])) if agree < 1 else None
+        print(f"spec {name}: bf16 ids agreement with the sequential kernel {agree:.4f} "
+              f"(first difference at {first}); {len(set(generated.tolist()))} distinct; "
+              f"MIDI {size} bytes", flush=True)
+        print(f"spec {name}: generate_ids B=1 x {GENERATE_EVENTS} greedy, host clock: spec "
+              f"{spec_s:.4f} / {spec_s2:.4f} s ({GENERATE_EVENTS / spec_s:.1f} / "
+              f"{GENERATE_EVENTS / spec_s2:.1f} events/s), sequential {seq_s:.4f} / "
+              f"{seq_s2:.4f} s ({GENERATE_EVENTS / seq_s:.1f} / {GENERATE_EVENTS / seq_s2:.1f}"
+              f" events/s); speed-up {seq_s / spec_s:.3f} / {seq_s2 / spec_s2:.3f} [{card}]",
+              flush=True)
+
+    # The kernel alone at the main path's shape, random weights, bf16.
+    engine = gen._packed_engine(model, None)
+    packed, block = engine.packed, dks.default_block(True)
+    row = torch.as_tensor(prompt, dtype=torch.int32, device=device)
+    args = (packed, row, 0, 0.0, 513.0, 2.0)
+    kwargs = dict(config=engine.config, length=GENERATE_EVENTS, cache_len=1024, block=block)
+    tokens, stats = dks.spec_decode(*args, **kwargs)
+    spec_bf16_check(f"kernel T={block}, random weights", packed, engine.config, prompt,
+                    tokens.cpu().numpy())
+    spec_ms = cuda_ms(lambda: dks.spec_decode(*args, **kwargs), 3)
+    temps, topk, topp = dk.row_params(1, 512, 0.0, 0, 0.0, True, False, False, device)
+    plens = torch.full((1,), PROMPT_EVENTS, dtype=torch.int32, device=device)
+    seq_ms = cuda_ms(lambda: decode_generate(
+        packed, row[None], plens, 0, temps, topk, topp, None, None, config=engine.config,
+        num_steps=PROMPT_EVENTS + GENERATE_EVENTS - 1, out_len=GENERATE_EVENTS,
+        cache_len=1024, start_step=0), 3)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    plain_tokens, _ = dks.speculative_generate_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - start) * 1e3
+    blocks = int(stats[0])
+    bound_ms, bound_by = spec_bound(engine, prompt, tokens.cpu().numpy(), blocks, block)
+    steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
+    print(f"spec kernel B=1 x {GENERATE_EVENTS} bf16 greedy T={block}: {spec_ms:.2f} ms, "
+          f"{blocks} blocks ({spec_ms / blocks * 1e3:.1f} us per block); sequential kernel "
+          f"{seq_ms:.2f} ms ({seq_ms / steps * 1e3:.1f} us per step); block / step "
+          f"{spec_ms / blocks / (seq_ms / steps):.3f}; plain version {plain_ms:.2f} ms "
+          f"(ids agreement {float((plain_tokens == tokens).float().mean()):.4f}); bound "
+          f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    return {"launches": launches, "ms": spec_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -732,7 +985,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     start = time.perf_counter()
-    libraries = ("decode_generate", "flash_attention")
+    libraries = ("decode_generate", "flash_attention", "spec_decode")
     _build.build_all(libraries)
     for name in libraries:
         _build.load_library(name)
@@ -746,6 +999,8 @@ def main() -> int:
     flash_errors = flash_vs_plain(device)
     training = train_path(device, card, path["prompt"])
     flash_times = flash_timings(device, card)[(False, 0.0)]
+    spec_error = spec_vs_plain(device)
+    spec = spec_path(device, card, training["restored"])
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -769,6 +1024,12 @@ def main() -> int:
             "bound_ms": flash_times[f"bound_{direction}"],
             "bound_by": flash_times[f"bound_by_{direction}"],
             "library_ms": flash_times[f"sdpa_{direction}"]})
+    kernels.append({
+        "name": "spec_decode (B=1)", "route": "cuda",
+        "source": "composer_tpu_torch/csrc/spec_decode.cu",
+        "replaces": "composer_tpu/ops/decode_kernel_spec.py:120", "launches": spec["launches"],
+        "max_abs_err": spec_error, "ms": spec["ms"], "plain_ms": spec["plain_ms"],
+        "bound_ms": spec["bound_ms"], "bound_by": spec["bound_by"], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,31 +22,17 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // C entry point: decode_generate(...), returns cudaGetLastError() after launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;  // KERNEL_THREADS in decode_kernel_batched.py
-constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;
-constexpr int kMaxSharedBytes = 232448;
+using namespace decode_common;
+
 // Split-K partial sums: at most kThreads threads x 8 columns each.
 constexpr int kPartial = kThreads * 8;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
+// Static shared memory (s_token) beside the dynamic buffer; both count
+// against kMaxSharedBytes (STATIC_SHARED_BYTES in decode_kernel_batched.py).
+constexpr int kStaticSharedBytes = static_shared_bytes(sizeof(int));
 
 template <typename T>
 struct Args {
@@ -77,112 +63,6 @@ struct Args {
   int num_steps, start_step, out_len, use_rel;
   unsigned seed;
   float softmax_scale, eps;
-};
-
-// Sum over the block; every thread gets the same total (fixed order).
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < kWarps ? red[lane] : 0.f;
-  for (int o = 16; o; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  return t;
-}
-
-__device__ double block_sum_double(double v, double* red) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  double t = lane < kWarps ? red[lane] : 0.0;
-  for (int o = 16; o; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  return t;
-}
-
-__device__ float block_max(float v, float* red) {
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < kWarps ? red[lane] : -CUDART_INF_F;
-  for (int o = 16; o; o >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, o));
-  return t;
-}
-
-// Index of the first maximum of x[0, n) (== torch/jnp argmax).
-__device__ int block_argmax(const float* x, int n, float* red) {
-  float best = -CUDART_INF_F;
-  int index = n;
-  for (int v = threadIdx.x; v < n; v += kThreads) {
-    if (x[v] > best) { best = x[v]; index = v; }
-  }
-  for (int o = 16; o; o >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, index, o);
-    if (ob > best || (ob == best && oi < index)) { best = ob; index = oi; }
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* red_i = reinterpret_cast<int*>(red + kWarps);
-  __syncthreads();
-  if (lane == 0) { red[warp] = best; red_i[warp] = index; }
-  __syncthreads();
-  best = lane < kWarps ? red[lane] : -CUDART_INF_F;
-  index = lane < kWarps ? red_i[lane] : n;
-  for (int o = 16; o; o >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, index, o);
-    if (ob > best || (ob == best && oi < index)) { best = ob; index = oi; }
-  }
-  return index;
-}
-
-// out = (x - mean) * rsqrt(var + eps) [* scale + bias]; xw = out rounded to T.
-template <typename T>
-__device__ void layer_norm(const float* x, float* out, float* xw, int n, float eps,
-                           const float* scale, const float* bias, float* red) {
-  float s = 0.f;
-  for (int e = threadIdx.x; e < n; e += kThreads) s += x[e];
-  const float mean = block_sum(s, red) / n;
-  float q = 0.f;
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const float c = x[e] - mean;
-    q += c * c;
-  }
-  const float r = rsqrtf(block_sum(q, red) / n + eps);
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    float y = (x[e] - mean) * r;
-    if (scale != nullptr) y = y * scale[e] + bias[e];
-    if (out != nullptr) out[e] = y;
-    xw[e] = round_to<T>(y);
-  }
-  __syncthreads();
-}
-
-// 16-byte vector loads: kVec<T> consecutive elements as floats.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(pairs[k]);
-      out[2 * k] = f.x;
-      out[2 * k + 1] = f.y;
-    }
-  }
 };
 
 // y[j] = sum_i x[i] * w[i, j] for a row-major (K, N) weight, N a multiple of
@@ -219,38 +99,6 @@ __device__ void gemv(const float* x, const T* __restrict__ w, int K, int N, floa
     y[j] = acc;
   }
   __syncthreads();
-}
-
-// q_h . row[0, D) with D a multiple of Vec<T>::N.
-template <typename T>
-__device__ __forceinline__ float head_dot(const float* q, const T* row, int D) {
-  constexpr int VN = Vec<T>::N;
-  float acc = 0.f;
-  for (int d = 0; d < D; d += VN) {
-    float v[VN];
-    Vec<T>::load(row + d, v);
-#pragma unroll
-    for (int c = 0; c < VN; ++c) acc = fmaf(q[d + c], v[c], acc);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      key.x += 0x9E3779B9u;
-      key.y += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, ctr.x), lo0 = 0xD2511F53u * ctr.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, ctr.z), lo1 = 0xCD9E8D57u * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-  }
-  return ctr;
-}
-
-__device__ __forceinline__ float gumbel(unsigned bits) {
-  const float u = (float)(bits >> 9) * (1.0f / 8388608.0f) + 1e-12f;
-  return -logf(-logf(u));
 }
 
 template <typename T>
@@ -388,8 +236,7 @@ __global__ void __launch_bounds__(kThreads) decode_generate_kernel(const Args<T>
       const float* fc_b = a.fc_b + (size_t)layer * 4 * E;
       for (int j = tid; j < 4 * E; j += kThreads) {
         const float x = hid[j] + fc_b[j];
-        const float g = 0.5f * x * (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
-        hid[j] = round_to<T>(g);
+        hid[j] = round_to<T>(gelu_tanh(x));
       }
       __syncthreads();
       gemv<T>(hid, a.fp_w + (size_t)layer * 4 * E * E, 4 * E, E, act, partial);
@@ -408,61 +255,8 @@ __global__ void __launch_bounds__(kThreads) decode_generate_kernel(const Args<T>
     }
     __syncthreads();
 
-    int next;
-    if (!(temp > 0.f)) {
-      next = block_argmax(logits, V, red);
-    } else {
-      const float inv_temp = 1.0f / temp;
-      for (int v = tid; v < V; v += kThreads) scaled[v] = logits[v] * inv_temp;
-      __syncthreads();
-      // Both filters look at the unfiltered scaled row; ties are kept. A
-      // disabled filter carries its sentinel (topk Vpad+1, topp 2.0).
-      const bool do_k = topk < (float)V;
-      const bool do_p = topp < 1.0f;
-      double z = 0.0;
-      if (do_p) {
-        float local_max = -CUDART_INF_F;
-        for (int v = tid; v < V; v += kThreads) local_max = fmaxf(local_max, scaled[v]);
-        const float m = block_max(local_max, red);
-        double local = 0.0;
-        for (int v = tid; v < V; v += kThreads) {
-          const float ev = expf(scaled[v] - m);
-          expv[v] = ev;
-          local += (double)ev;
-        }
-        z = block_sum_double(local, reinterpret_cast<double*>(red));
-      }
-      __syncthreads();
-      for (int v = tid; v < V; v += kThreads) {
-        const float xv = scaled[v];
-        bool keep = true;
-        if (do_k || do_p) {
-          int rank = 0;
-          double mass = 0.0;
-          for (int j = 0; j < V; ++j) {
-            if (scaled[j] > xv) {
-              ++rank;
-              if (do_p) mass += (double)expv[j];
-            }
-          }
-          if (do_k) keep = keep && ((float)rank < topk);
-          if (do_p) keep = keep && (mass / z < (double)topp);
-        }
-        scored[v] = keep ? xv : kNegInf;
-      }
-      __syncthreads();
-      // Gumbel-max: lane v draws word v % 4 of Philox(counter (v/4, pos, s, 0)).
-      for (int c = tid; c < V / 4; c += kThreads) {
-        const uint4 r = philox4x32_10(make_uint4((unsigned)c, (unsigned)pos, (unsigned)s, 0u),
-                                      make_uint2(a.seed, 0u));
-        scored[4 * c + 0] += gumbel(r.x);
-        scored[4 * c + 1] += gumbel(r.y);
-        scored[4 * c + 2] += gumbel(r.z);
-        scored[4 * c + 3] += gumbel(r.w);
-      }
-      __syncthreads();
-      next = block_argmax(scored, V, red);
-    }
+    const int next = sample_row(logits, scaled, scored, expv, V, temp, topk, topp, a.seed,
+                                (unsigned)pos, (unsigned)s, red);
 
     if (tid == 0) {
       const int col = pos - plen + 1;
@@ -480,7 +274,7 @@ size_t smem_bytes(int E, int H, int C, int V) {
 template <typename T>
 int launch(const Args<T>& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.embed, a.heads, a.cache_len, a.vocab_pad);
-  if (smem > (size_t)kMaxSharedBytes || a.head_dim % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (smem + kStaticSharedBytes > (size_t)kMaxSharedBytes || a.head_dim % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       decode_generate_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

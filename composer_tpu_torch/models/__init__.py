@@ -38,8 +38,9 @@ def _compute_dtype(model_section, device) -> torch.dtype:
     return torch.float32
 
 
-def create_model(model_type: ModelType, config, device="cpu", **overrides):
-    """Builds the module for ``model_type`` from the YAML config.
+def create_model(model_type: ModelType, config, device="cuda", **overrides):
+    """Builds the module for ``model_type`` from the YAML config, on the card
+    unless ``device`` names another (``device="cpu"`` for the CPU).
 
     Returns ``(module, vocab_size)``. Parameters are initialised with the
     Flax initializers from torch's default generator; load real weights with

@@ -3,8 +3,8 @@
 The sources under ``composer_tpu_torch/csrc`` are compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds). The library lands in ``build/kernels``
-at the repository root (ignored by git), named after a hash of its source
-and flags so that an edited source is rebuilt.
+at the repository root (ignored by git), named after a hash of its source,
+the shared headers and the flags, so that an edited source is rebuilt.
 """
 
 from __future__ import annotations
@@ -41,7 +41,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str, source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # The shared headers are part of every source's digest: an edited header
+    # rebuilds the libraries that include it.
+    headers = b"".join(path.read_bytes() for path in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -86,6 +90,9 @@ ENTRY_POINTS = {
         "decode_generate": (
             [_I32, _I32] + [_PTR] * 23 + [_I32] * 13 + [_U32, _F32, _F32, _PTR]
         ),
+    },
+    "spec_decode": {
+        "spec_decode": [_I32, _I32] + [_PTR] * 18 + [_I32] * 11 + [_U32] + [_F32] * 5 + [_PTR],
     },
     "flash_attention": {
         "flash_attention_forward": (

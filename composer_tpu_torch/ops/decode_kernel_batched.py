@@ -40,21 +40,26 @@ from composer_tpu_torch.ops.decode_kernel import (
 
 # Threads per block; must match kThreads in csrc/decode_generate.cu.
 KERNEL_THREADS = 512
-# Dynamic shared memory one block may use on Hopper (227 KB).
+# Shared memory one block may use on Hopper (227 KB), static and dynamic
+# together.
 MAX_SHARED_BYTES = 232448
+# kStaticSharedBytes in csrc/decode_generate.cu: s_token, padded to the
+# 16-byte boundary where the dynamic buffer starts.
+STATIC_SHARED_BYTES = 16
 
 
 def kernel_smem_bytes(config, cache_len: int) -> int:
-    """Shared memory of one block; mirrors the layout in decode_generate.cu."""
+    """Shared memory of one block, static and dynamic; mirrors the layout in
+    decode_generate.cu."""
     floats = (64 + 11 * config.embed_dim + 4 * vocab_pad(config) + config.num_heads * cache_len
               + KERNEL_THREADS * 8)
-    return 4 * floats
+    return 4 * floats + STATIC_SHARED_BYTES
 
 
 def kernel_fits(config, cache_len: int) -> bool:
     """The kernel's limits: the ``H x cache_len`` float32 scores plus the
     per-block activations must fit 227 KB of shared memory (for the default
-    model, cache_len <= 3068), and head_dim must be a multiple of 8 (16-byte
+    model, cache_len <= 3067), and head_dim must be a multiple of 8 (16-byte
     loads of a head's lanes)."""
     return (kernel_smem_bytes(config, cache_len) <= MAX_SHARED_BYTES
             and config.head_dim % 8 == 0)

@@ -1,7 +1,10 @@
 """Autoregressive generation: port of ``composer_tpu/train/generate.py``.
 
-Two engines, as in the JAX package:
+Three engines, as in the JAX package:
 
+* the speculative kernel (``_spec_generate``): at batch 1, one launch of the
+  Hopper kernel ``spec_decode`` drafts tokens by n-gram lookup and verifies
+  a block of them per forward pass (``ops/decode_kernel_spec.py``);
 * the fused kernel (``TransformerDecoder``): one launch of the Hopper kernel
   ``decode_generate`` consumes the prompt and samples every new token;
   prompts whose common prefix is at least ``COMPOSER_PREFILL_MIN`` tokens
@@ -10,12 +13,15 @@ Two engines, as in the JAX package:
 * the unfused path (``engine="xla"``, the JAX package's name for it): a
   prefill forward, then one cached forward and one sampling call per token.
 
-Routing (``generate_ids``): ``auto`` sends every transformer with layer norm
-to the kernel on a CUDA device, at batch 1 and above, and to the unfused
-path on the CPU. ``megakernel`` runs the kernel on CUDA and its plain
-PyTorch version on the CPU. ``xla`` runs the unfused path. The JAX package's
-``wide`` and ``spec`` engines are not ported yet; on the TPU, batch-1 greedy
-``auto`` goes to ``spec``, here it goes to the fused kernel.
+Routing (``generate_ids``), with the JAX package's gates: ``auto`` sends a
+batch-1 greedy request (every temperature <= 0) on a CUDA device to the
+speculative kernel, every other transformer with layer norm on a CUDA device
+to the fused kernel, and everything on the CPU to the unfused path.
+``spec`` opts a batch-1 request into the speculative engine, sampled ones
+included (its plain version on the CPU); at batch > 1 it takes the unfused
+path. ``megakernel`` runs the fused kernel on CUDA and its plain PyTorch
+version on the CPU. ``xla`` runs the unfused path. The JAX package's
+``wide`` engine is not ported yet.
 
 Positions past ``window_size`` clamp to the last learned position embedding.
 """
@@ -32,6 +38,11 @@ from composer_tpu_torch.models import ModelType
 from composer_tpu_torch.models.transformer import init_cache
 from composer_tpu_torch.ops import decode_kernel as dk
 from composer_tpu_torch.ops.decode_kernel_batched import kernel_fits, megakernel_generate_batched
+from composer_tpu_torch.ops.decode_kernel_spec import (
+    default_block,
+    spec_kernel_fits,
+    speculative_generate,
+)
 from composer_tpu_torch.ops.sampling import sample_filtered_rows
 
 
@@ -250,6 +261,14 @@ def _weights_key(model, params) -> tuple:
 
 _ENGINE_CACHE: dict = {}
 
+# Stats vector of the most recent speculative generate: [total_blocks,
+# generation_blocks, final_position, 0...]; the realized acceptance is
+# length / generation_blocks.
+LAST_SPEC_STATS = None
+# Count of speculative dispatches: a caller compares it around a
+# generate_ids call to learn whether the spec engine served the request.
+SPEC_DISPATCHES = 0
+
 
 def _packed_engine(model, params) -> TransformerDecoder:
     """One packed engine kept alive, keyed on the model and params objects
@@ -262,18 +281,54 @@ def _packed_engine(model, params) -> TransformerDecoder:
     return engine
 
 
+def _spec_generate(model, params, prompt, length: int, temps, seed: int, cache_len: int,
+                   top_k=0, top_p=0.0):
+    """Speculative block decode of one sequence, on the packed weights of the
+    fused engine. Returns ``(1, length)`` ids."""
+    global LAST_SPEC_STATS, SPEC_DISPATCHES
+    engine = _packed_engine(model, params)
+    row = np.asarray(prompt, np.int32).reshape(-1)
+    tokens, stats = speculative_generate(
+        engine.packed, row, seed, temps, config=model.config, length=length,
+        cache_len=max(_padded_cache_len(cache_len), row.shape[0] + length),
+        top_k=top_k, top_p=top_p,
+    )
+    LAST_SPEC_STATS = stats.cpu().numpy()
+    SPEC_DISPATCHES += 1
+    return tokens[None]
+
+
+def _use_spec_kernel(model, model_type, batch: int, cache_len: int, engine: str, device,
+                     temps=None) -> bool:
+    """The JAX package's gate for the speculative engine: batch 1 only, a
+    transformer with layer norm, a cache the kernel fits. ``spec`` opts in
+    for any sampling; ``auto`` only for greedy requests (every temperature
+    <= 0) on a CUDA device, the case where the engine is exact against the
+    sequential kernel. Sampled ``auto`` stays sequential: its contract is
+    never to run slower than the sequential kernel for any content."""
+    greedy = temps is not None and bool(np.all(np.asarray(temps) <= 0))
+    if engine == "auto":
+        if device.type != "cuda" or not greedy:
+            return False
+    elif engine != "spec":
+        return False
+    if model_type != ModelType.TRANSFORMER or batch != 1:
+        return False
+    if not model.config.use_layer_norm:
+        return False
+    return spec_kernel_fits(model.config, _padded_cache_len(cache_len), default_block(greedy))
+
+
 def _use_kernel(model, model_type, cache_len: int, engine: str, device) -> bool:
     if engine == "wide":
         raise NotImplementedError(
             "engine='wide' is not ported yet (ROADMAP.md, Queue 2 items 7 and 8)."
         )
-    if engine == "spec":
-        raise NotImplementedError(
-            "engine='spec' is not ported yet (ROADMAP.md, Queue 2 item 6)."
-        )
-    if engine not in ("auto", "megakernel", "xla"):
+    if engine not in ("auto", "megakernel", "xla", "spec"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "xla" or model_type != ModelType.TRANSFORMER:
+    # A spec request the speculative engine did not take (batch > 1) goes
+    # to the unfused path, as in the JAX package.
+    if engine in ("xla", "spec") or model_type != ModelType.TRANSFORMER:
         return False
     if not model.config.use_layer_norm:
         # The kernel hard-codes the pre-LN block; norm-free models stay unfused.
@@ -299,8 +354,9 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
     a common width; row s's generated ids are still columns
     ``[prompt_len, prompt_len + length)``. ``temperature``/``top_k``/
     ``top_p`` are scalars or per-row vectors; a row with temperature <= 0
-    decodes greedily. ``engine``: ``auto``, ``megakernel`` or ``xla`` (see
-    the module docstring).
+    decodes greedily. ``engine``: ``auto``, ``spec``, ``megakernel`` or
+    ``xla`` (see the module docstring). After a speculative run,
+    ``LAST_SPEC_STATS`` holds its stats and ``SPEC_DISPATCHES`` has risen.
     """
     if isinstance(prompt_ids, torch.Tensor):
         prompt_ids = prompt_ids.cpu().numpy()
@@ -326,7 +382,12 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
     if cache_len is None:
         cache_len = prompt_host.shape[1] + length
     device = _device(model, params_or_variables)
-    if _use_kernel(model, model_type, cache_len, engine, device):
+    if _use_spec_kernel(model, model_type, prompt_host.shape[0], cache_len, engine, device,
+                        temps):
+        prompt = prompt_host if plens is None else prompt_host[:, :int(plens[0])]
+        generated = _spec_generate(model, params_or_variables, prompt, length, temps, seed,
+                                   cache_len, top_k=topks, top_p=topps)
+    elif _use_kernel(model, model_type, cache_len, engine, device):
         generated = _packed_engine(model, params_or_variables).generate(
             prompt_host, length, temperature=temps, seed=seed,
             cache_len=cache_len, top_k=topks, top_p=topps, prompt_lengths=plens,

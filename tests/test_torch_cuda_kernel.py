@@ -131,3 +131,27 @@ def test_auto_engine_repacks_weights_changed_in_place(cuda_device):
     expected = gen.TransformerDecoder(model).generate(prompts, 16, temperature=0.0)
     np.testing.assert_array_equal(changed[:, 6:], expected.cpu().numpy())
     assert not np.array_equal(changed, first)
+
+
+def test_largest_cache_that_fits_launches(cuda_device):
+    """At the default widths the largest cache ``kernel_fits`` admits (its
+    limit counts the kernel's static shared state) launches; one more
+    raises before the launch."""
+    from composer_tpu_torch.ops.decode_kernel_batched import kernel_fits
+
+    config = TransformerConfig(vocab_size=390, num_layers=1)
+    model = Transformer(config, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    packed = dk.pack_weights(model.state_dict(), config, dtype=torch.bfloat16,
+                             device=cuda_device)
+    prompts = torch.arange(4, dtype=torch.int32, device=cuda_device)[None]
+    plens = torch.full((1,), 4, dtype=torch.int32, device=cuda_device)
+    temps, topk, topp = dk.row_params(1, 512, 0.0, 0, 0.0, True, False, False, cuda_device)
+    args = (packed, prompts, plens, 0, temps, topk, topp, None, None)
+    kwargs = dict(config=config, num_steps=11, out_len=8, start_step=0)
+    assert kernel_fits(config, 3067) and not kernel_fits(config, 3068)
+    tokens = decode_generate(*args, **kwargs, cache_len=3067)
+    torch.cuda.synchronize()
+    assert int(tokens.max()) < 390
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_generate(*args, **kwargs, cache_len=3068)

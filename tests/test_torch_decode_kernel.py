@@ -220,6 +220,18 @@ def test_batched_validation():
                                     cache_len=128)
 
 
+def test_kernel_limit_counts_static_shared_memory():
+    """``kernel_fits`` states the card's limit with the kernel's static
+    shared ``s_token`` beside the dynamic buffer: for the default model the
+    dynamic part alone fits cache 3068, the block as a whole does not."""
+    from composer_tpu_torch.ops import decode_kernel_batched as dkb
+
+    default = TransformerConfig(vocab_size=390)
+    assert dkb.kernel_fits(default, 3067) and not dkb.kernel_fits(default, 3068)
+    assert (dkb.kernel_smem_bytes(default, 3068) - dkb.STATIC_SHARED_BYTES
+            <= dkb.MAX_SHARED_BYTES)
+
+
 def _rows(rng, n=3, vocab=390, vpad=512):
     x = rng.normal(0.0, 3.0, (n, vpad)).astype(np.float32)
     x[:, vocab:] = dk.NEG_INF  # padding lanes, as the kernel's logits_b makes them

@@ -140,10 +140,13 @@ def test_routing(setup, monkeypatch):
     assert not gen._use_kernel(model, ModelType.TRANSFORMER, 1024, "xla", device)
     # The kernel's one limit: the scores of a 40k-slot cache exceed shared memory.
     assert not gen._use_kernel(model, ModelType.TRANSFORMER, 40_000, "auto", device)
-    for engine, item in (("wide", "Queue 2 items 7 and 8"), ("spec", "Queue 2 item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            gen.generate_ids(model, ModelType.TRANSFORMER, None, PROMPTS, length=3,
-                             engine=engine)
+    with pytest.raises(NotImplementedError, match="Queue 2 items 7 and 8"):
+        gen.generate_ids(model, ModelType.TRANSFORMER, None, PROMPTS, length=3, engine="wide")
+    # spec at batch 2 takes the unfused path, as the JAX gates send it.
+    gen.generate_ids(model, ModelType.TRANSFORMER, None, PROMPTS, length=3, engine="spec")
+    assert calls == [(1, 5)]
+    with pytest.raises(ValueError, match="unknown engine"):
+        gen.generate_ids(model, ModelType.TRANSFORMER, None, PROMPTS, length=3, engine="fast")
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         gen.generate_ids(model, ModelType.MUSIC_RNN, None, PROMPTS, length=3)
 

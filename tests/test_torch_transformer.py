@@ -100,13 +100,28 @@ def test_create_model_from_default_config():
     from composer_tpu_torch.models import ModelType
     from composer_tpu_torch.models import create_model
 
-    model, vocab = create_model(ModelType.TRANSFORMER, get_default())
+    model, vocab = create_model(ModelType.TRANSFORMER, get_default(), device="cpu")
     config = model.config
     assert (vocab, config.embed_dim, config.num_layers, config.num_heads) == (390, 256, 8, 16)
     assert config.window_size == 1024 and config.head_dim == 16
     assert config.dtype == torch.float32  # CPU stays float32
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        create_model(ModelType.MUSIC_RNN, get_default())
+        create_model(ModelType.MUSIC_RNN, get_default(), device="cpu")
+
+
+def test_create_model_defaults_to_the_card():
+    """The factory builds on CUDA unless the caller asks for the CPU: without
+    a card the default raises instead of quietly building on the CPU."""
+    from composer_tpu_torch.config import get_default
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.models import create_model
+
+    if torch.cuda.is_available():
+        model, _ = create_model(ModelType.TRANSFORMER, get_default())
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            create_model(ModelType.TRANSFORMER, get_default())
 
 
 def test_port_imports_no_jax():
@@ -124,8 +139,9 @@ def test_port_imports_no_jax():
         "importlib.import_module('chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'composer_tpu'))\n"
-        "print(len(names), 'modules;', bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
+        "missing = {'composer_tpu_torch.ops.decode_kernel_spec'} - set(names)\n"
+        "print(len(names), 'modules;', bad, 'missing', missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n"
     )
     result = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
