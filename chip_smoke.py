@@ -63,6 +63,31 @@ Phases (any failure exits non-zero):
    flip), the realized acceptance (tokens per generation block), events/s
    of both engines, and the kernel's, the sequential kernel's and the
    plain version's times are printed.
+7. The segmented decode kernel ``decode_segment`` (csrc/decode_segment.cu)
+   and ``ContinuousGenerationService``. (a) Kernel against plain version in
+   float32 at the default widths: 8 slots, ragged prompts, a slot parked
+   throughout and two arriving mid-run, 64 steps cut into segments of 1, 7
+   and 64, cache 128, relative attention off and on, greedy and sampled:
+   ids and carry identical, and identical across the three cuts. Then the
+   service's shape, 8 x (10 + 1014) in 16 segments of 64 with cache 2048
+   (greedy, relative attention off; sampled, on): identical to the plain
+   version and to one ``decode_generate`` launch. (b) bf16 at that shape:
+   the kernel's ms per segment (CUDA events around each launch) against
+   the plain version's and the bound, one ``decode_generate`` launch for
+   the same generation (the cost of segmenting), and the greedy ids'
+   agreement with it. (c) The service with the JAX ``serve`` defaults (8
+   slots, segments of 64, cache 2048, bf16) on the card: 16 requests of
+   10 + 1014 events submitted from 16 threads at once, 8 greedy and 8
+   sampled with mixed top-k / top-p, so half wait for a slot. Every
+   response must hold 1024 ids in the vocabulary, the kernel's launch count
+   must rise, and each response's tokens, teacher-forced through the plain
+   bf16 forward (a sampled row adding the kernel's Philox noise of its
+   slot and global steps), must be ones the kernel could have picked with
+   every logit within 1% of their scale of the plain version's
+   (``sampled_token_gap``: the 2% rule, split between two lanes). The
+   burst's events/s, the device's busy share (CUDA events around each
+   segment against the device window) and the greedy responses' agreement
+   with ``decode_generate`` are printed.
 
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
@@ -76,6 +101,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -280,21 +306,31 @@ def write_midi(ids, config, path: Path) -> int:
 
 
 class KernelSpans:
-    """Stands in for the kernel's loaded library and records CUDA events
-    around each call of its C entry point. The call only enqueues the
-    kernel, so on the stream the two events bracket the kernel itself."""
+    """Stands in for a kernel's loaded library and records CUDA events around
+    each call of its C entry points. The call only enqueues the kernel, so
+    on the stream the two events bracket the kernel itself."""
 
     def __init__(self, lib):
         self.lib = lib
         self.spans = []
 
-    def decode_generate(self, *args):
-        begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        begin.record()
-        err = self.lib.decode_generate(*args)
-        end.record()
-        self.spans.append((begin, end))
-        return err
+    def __getattr__(self, symbol):
+        entry = getattr(self.lib, symbol)
+
+        def call(*args):
+            begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            begin.record()
+            err = entry(*args)
+            end.record()
+            self.spans.append((begin, end))
+            return err
+
+        return call
+
+    def ms(self) -> float:
+        """Device time of the recorded calls (synchronizes)."""
+        torch.cuda.synchronize()
+        return sum(begin.elapsed_time(end) for begin, end in self.spans)
 
 
 def main_path(device, card: str) -> dict:
@@ -325,8 +361,7 @@ def main_path(device, card: str) -> dict:
                                temperature=1.0, engine="auto", **kwargs)
         window[1].record()
         wall = time.perf_counter() - start
-        torch.cuda.synchronize()
-        kernel_ms = sum(b.elapsed_time(e) for b, e in kernel_spans.spans)
+        kernel_ms = kernel_spans.ms()
         return ids, wall, window[0].elapsed_time(window[1]), kernel_ms
 
     prefills = []
@@ -972,6 +1007,384 @@ def spec_path(device, card: str, trained) -> dict:
             "bound_by": bound_by}
 
 
+SEGMENT_STEPS = 64  # the JAX `serve` defaults: composer_tpu/cli.py:634-649
+SERVE_SLOTS, SERVE_CACHE = 8, 2048
+
+
+def segment_stream(packed, config, prompts, plens, starts, boundaries, sampling, *,
+                   cache_len, plain=False, live=None, seed=3):
+    """One run over the segments ``boundaries`` on fresh state, by the kernel
+    (``decode_segment``) or its plain version: ``(stream (B, steps), carry)``
+    on the host. ``live=None`` grows it as the service does: the oldest
+    row's reach rounded up to 256."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_segmented as seg
+
+    device = packed["wte"].device
+    rows = dk.row_params(len(prompts), packed["wte"].shape[0], *sampling,
+                         *dk.sampling_flags(*sampling), device)
+    host = [torch.as_tensor(t, dtype=torch.int32, device=device) for t in (prompts, plens, starts)]
+    state = seg.init_segment_state(packed, config, len(prompts), cache_len)
+    active = starts != seg.PARKED
+    chunks = []
+    for b0, b1 in zip(boundaries[:-1], boundaries[1:]):
+        reach = int((b1 - starts[active]).max())
+        kwargs = dict(config=config, steps=b1 - b0, cache_len=cache_len,
+                      live=live or min(cache_len, -(-reach // 256) * 256))
+        if plain:
+            tokens, *state = seg.decode_segment_reference(packed, *state, *host, b0, seed, *rows,
+                                                          **kwargs)
+        else:
+            tokens, *state = seg.decode_segment(packed, *state, prompts, plens, starts, b0, seed,
+                                                *sampling, **kwargs)
+        chunks.append(tokens)
+    torch.cuda.synchronize()
+    return torch.cat(chunks, dim=1).cpu(), state[2].cpu()
+
+
+def segment_vs_plain(device) -> int:
+    """Phase 7a; returns the largest |kernel - plain| over ids and carry."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_segmented as seg
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+
+    worst = 0
+    greedy = (0.0, 0, 0.0)
+    sampled = (np.array([1.0, 0.8, 0.0, 1.2, 1.0, 0.7, 1.0, 1.0], np.float32),
+               np.array([0, 20, 0, 5, 0, 40, 0, 3]),
+               np.array([0.9, 0.0, 0.0, 0.8, 0.0, 0.95, 0.0, 0.0], np.float32))
+
+    def compare(name, ours, plain):
+        nonlocal worst
+        diff = max(int((a.long() - b.long()).abs().max()) for a, b in zip(ours, plain))
+        worst = max(worst, diff)
+        print(f"segment f32 {name}: ids and carry identical={diff == 0}, distinct ids "
+              f"{len(set(plain[0].flatten().tolist()))}", flush=True)
+        if diff:
+            raise AssertionError(f"segment kernel and plain version disagree: {name}")
+
+    rng = np.random.default_rng(13)
+    for use_relative in (False, True):
+        model, _ = build_model(use_relative, device)
+        config = model.config
+        packed = dk.pack_weights(model.state_dict(), config, dtype=torch.float32, device=device)
+        prompts = rng.integers(0, 390, (8, 10)).astype(np.int32)
+        plens = np.array([10, 4, 7, 1, 10, 6, 9, 2], np.int32)
+        # Slot 4 arrives at step 3, slot 7 at step 40, slot 6 stays parked.
+        starts = np.array([0, 0, 0, 0, 3, 0, seg.PARKED, 40], np.int32)
+        for kind, sampling in (("greedy", greedy), ("sampled", sampled)):
+            streams = []
+            for length in (1, 7, 64):
+                boundaries = list(range(0, 64, length)) + [64]
+                runs = [segment_stream(packed, config, prompts, plens, starts, boundaries,
+                                       sampling, cache_len=128, live=128, plain=plain)
+                        for plain in (False, True)]
+                compare(f"rel={use_relative} {kind} segments of {length}", *runs)
+                streams.append(runs[0][0])
+            if not all(torch.equal(streams[0], other) for other in streams[1:]):
+                raise AssertionError(f"segmentations disagree: rel={use_relative} {kind}")
+            if (streams[0][6] != -1).any() or (streams[0][7, :40] != -1).any():
+                raise AssertionError("a parked slot emitted a token")
+
+    # The service's shape: 8 x (10 + 1014) in 16 segments of 64, cache 2048,
+    # against the plain version and against decode_generate (one launch;
+    # with every row started at step 0 both draw the same Philox bits).
+    main = np.random.default_rng(2).integers(0, 390, (8, PROMPT_EVENTS)).astype(np.int32)
+    plens = np.full(8, PROMPT_EVENTS, np.int32)
+    starts = np.zeros(8, np.int32)
+    boundaries = list(range(0, 16 * SEGMENT_STEPS + 1, SEGMENT_STEPS))
+    for use_relative, kind, sampling, seed in ((False, "greedy", greedy, 0),
+                                               (True, "sampled", sampled, 11)):
+        model, _ = build_model(use_relative, device)
+        config = model.config
+        packed = dk.pack_weights(model.state_dict(), config, dtype=torch.float32, device=device)
+        runs = [segment_stream(packed, config, main, plens, starts, boundaries, sampling,
+                               cache_len=SERVE_CACHE, plain=plain, seed=seed)
+                for plain in (False, True)]
+        compare(f"rel={use_relative} {kind} 8 x ({PROMPT_EVENTS} + {GENERATE_EVENTS}), cache "
+                f"{SERVE_CACHE}, segments of {SEGMENT_STEPS}", *runs)
+        temps, topk, topp = dk.row_params(8, 512, *sampling, *dk.sampling_flags(*sampling),
+                                          device)
+        fused = decode_generate(packed, torch.as_tensor(main, device=device),
+                                torch.as_tensor(plens, device=device), seed, temps, topk, topp,
+                                None, None, config=config,
+                                num_steps=PROMPT_EVENTS + GENERATE_EVENTS - 1,
+                                out_len=GENERATE_EVENTS, cache_len=SERVE_CACHE, start_step=0)
+        generated = runs[0][0][:, PROMPT_EVENTS - 1:PROMPT_EVENTS - 1 + GENERATE_EVENTS]
+        same = torch.equal(generated, fused.cpu())
+        print(f"segment f32 rel={use_relative} {kind}: ids equal decode_generate's={same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"segment kernel and decode_generate disagree: {kind}")
+    return worst
+
+
+def segment_bound(packed, config, starts, step0: int, steps: int, live: int):
+    """One segment: the packed weights, the prompts, per-row inputs and ids
+    moved once, and each active row's K/V rows [0, its last position]
+    (read or written once); per step and active row the layer GEMVs, the
+    tied logits and attention over its keys."""
+    E, L = config.embed_dim, config.num_layers
+    weights = sum(t.numel() * t.element_size() for t in packed.values())
+    kv_row = 2 * L * E * packed["wte"].element_size()
+    per_key = 6 if config.use_relative_attention else 4
+    flops, kv_rows = 0, 0
+    for start in starts:
+        last = step0 + steps - 1 - int(start)
+        if last < 0:
+            continue
+        positions = np.arange(max(step0 - int(start), 0), last + 1)
+        keys = np.minimum(positions, live - 1) + 1
+        flops += len(positions) * (L * 24 * E * E + 2 * E * config.vocab_size)
+        flops += L * per_key * E * int(keys.sum())
+        kv_rows += min(last + 1, live)
+    ids = len(starts) * (PROMPT_EVENTS + steps + 8) * 4
+    return bound(weights + ids + kv_rows * kv_row, flops)
+
+
+def segment_timings(device, card: str) -> dict:
+    """Phase 7b: the kernel at the service's shape in bf16 (8 rows x (10 +
+    1014) in 16 segments of 64, cache 2048, greedy), per segment, against
+    the plain version and against one decode_generate launch for the same
+    generation (the cost of segmenting)."""
+    from composer_tpu_torch.ops import _build
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+
+    model, _ = build_model(False, device)
+    config = model.config
+    packed = dk.pack_weights(model.state_dict(), config, dtype=torch.bfloat16, device=device)
+    prompts = np.random.default_rng(3).integers(0, 390, (8, PROMPT_EVENTS)).astype(np.int32)
+    plens = np.full(8, PROMPT_EVENTS, np.int32)
+    starts = np.zeros(8, np.int32)
+    greedy = (0.0, 0, 0.0)
+    boundaries = list(range(0, 16 * SEGMENT_STEPS + 1, SEGMENT_STEPS))
+    args = (packed, config, prompts, plens, starts, boundaries, greedy)
+    segment_stream(*args, cache_len=SERVE_CACHE)  # warm-up
+    spans = KernelSpans(_build.load_library("decode_segment"))
+    load_library = _build.load_library
+    _build.load_library = lambda name="decode_segment": spans
+    try:
+        ours, _ = segment_stream(*args, cache_len=SERVE_CACHE)
+        ours, _ = segment_stream(*args, cache_len=SERVE_CACHE)
+    finally:
+        _build.load_library = load_library
+    torch.cuda.synchronize()
+    per_segment = [begin.elapsed_time(end) for begin, end in spans.spans]
+    kernel_ms = float(np.mean(per_segment))
+    start = time.perf_counter()
+    plain, _ = segment_stream(*args, cache_len=SERVE_CACHE, plain=True)
+    plain_ms = (time.perf_counter() - start) * 1e3 / 16
+    temps, topk, topp = dk.row_params(8, 512, *greedy, True, False, False, device)
+    fused_args = (packed, torch.as_tensor(prompts, device=device),
+                  torch.as_tensor(plens, device=device), 0, temps, topk, topp, None, None)
+    fused_kwargs = dict(config=config, num_steps=PROMPT_EVENTS + GENERATE_EVENTS - 1,
+                        out_len=GENERATE_EVENTS, cache_len=SERVE_CACHE, start_step=0)
+    fused = decode_generate(*fused_args, **fused_kwargs).cpu()
+    fused_ms = cuda_ms(lambda: decode_generate(*fused_args, **fused_kwargs), 3)
+    generated = ours[:, PROMPT_EVENTS - 1:PROMPT_EVENTS - 1 + GENERATE_EVENTS]
+    agree = float((generated == fused).float().mean())
+    agree_plain = float((ours == plain).float().mean())
+    bounds = [segment_bound(packed, config, starts, b0, SEGMENT_STEPS,
+                            min(SERVE_CACHE, -(-(b0 + SEGMENT_STEPS) // 256) * 256))
+              for b0 in boundaries[:-1]]
+    bound_ms = float(np.mean([ms for ms, _ in bounds]))
+    bound_by = bounds[-1][1]
+    half = len(per_segment) // 2
+    print(f"segment kernel bf16, 8 live rows x {SEGMENT_STEPS} steps, cache {SERVE_CACHE}: "
+          f"{kernel_ms:.3f} ms per segment (mean of {len(per_segment)} over two runs; first "
+          f"segment {per_segment[half]:.3f} ms, last {per_segment[-1]:.3f} ms; "
+          f"{kernel_ms / SEGMENT_STEPS * 1e3:.1f} us per step); plain version "
+          f"{plain_ms:.2f} ms per segment (ids agreement {agree_plain:.4f}); bound "
+          f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    print(f"8 x {GENERATE_EVENTS} bf16 greedy: 16 segments {16 * kernel_ms:.2f} ms against one "
+          f"decode_generate launch {fused_ms:.2f} ms (cost of segmenting "
+          f"{16 * kernel_ms / fused_ms:.4f}x); ids agreement with decode_generate {agree:.4f} "
+          f"[{card}]", flush=True)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "fused_ms": fused_ms, "agree": agree}
+
+
+def gumbel_rows(seed: int, slot: int, steps, vpad: int, device):
+    """The kernels' Gumbel noise for one slot at several global steps: row t
+    is ``ops/decode_kernel.py::gumbel_noise(seed, ., steps[t], vpad)[slot]``."""
+    from composer_tpu_torch.ops.philox import MASK32, philox4x32_10
+
+    steps = torch.as_tensor(np.asarray(steps), dtype=torch.int64, device=device)
+    groups = vpad // 4
+    c0 = torch.arange(groups, dtype=torch.int64, device=device)[None].expand(len(steps), groups)
+    c1 = (steps[:, None] & MASK32).expand(-1, groups)
+    words = philox4x32_10(c0, c1, torch.full_like(c0, slot), torch.zeros_like(c0), seed)
+    bits = torch.stack(words, dim=-1).reshape(len(steps), vpad)
+    uniform = (bits >> 9).to(torch.float32) * (1.0 / (1 << 23)) + 1e-12
+    return -torch.log(-torch.log(uniform))
+
+
+def sampled_token_gap(scaled, noise, tokens, top_k, top_p, delta: float) -> float:
+    """How far each emitted token falls short of what a kernel could have
+    sampled if each of its scaled logits may differ from ``scaled`` (the
+    plain version's, teacher-forced) by up to ``delta / 2``. Lane i may be
+    kept by the kernel's top-k / top-p (the fused kernels' definition: both
+    filters on the unfiltered row) when the lanes surely above it (more
+    than ``delta`` above) number fewer than k and, with their logits lowered
+    and the others raised by ``delta / 2``, hold less than p of the mass; it
+    is surely kept when the same holds for every lane within ``delta`` of
+    it raised and the others lowered. Returns inf when a token could not
+    have been kept, else the largest excess of the best surely kept lane's
+    noisy score over the token's, which must stay within ``delta``."""
+    x = scaled.double()
+    steps, vocab = x.shape
+    ascending = torch.sort(x, dim=-1).values
+    e = torch.exp(ascending - ascending[:, -1:])
+    suffix = torch.cat([e.flip(-1).cumsum(-1).flip(-1), e.new_zeros(steps, 1)], dim=-1)
+    total = suffix[:, :1]
+    lane = torch.exp(x - ascending[:, -1:])
+
+    def above(threshold):  # count and mass of the lanes scoring above threshold
+        index = torch.searchsorted(ascending, threshold.contiguous(), right=True)
+        return vocab - index, torch.gather(suffix, -1, index)
+
+    shift = np.exp(delta / 2)
+    count, mass = above(x + delta)
+    possible = torch.ones_like(x, dtype=torch.bool)
+    count_in, mass_in = above(x - delta)
+    if delta > 0:  # lane i itself lies above x_i - delta, but not above itself
+        count_in, mass_in = count_in - 1, mass_in - lane
+    sure = torch.ones_like(possible)
+    if top_k > 0:
+        possible &= count < top_k
+        sure &= count_in < top_k
+    if 0 < top_p < 1:
+        low = mass / shift
+        possible &= low / (low + (total - mass) * shift) < top_p
+        high = mass_in * shift
+        sure &= high / (high + (total - mass_in) / shift) < top_p
+    rows = torch.arange(steps, device=x.device)
+    if not bool(possible[rows, tokens].all()):
+        return float("inf")
+    score = scaled + noise
+    best = torch.where(sure, score, -np.inf).max(-1).values
+    return float((best - score[rows, tokens]).max())
+
+
+def serve_path(device, card: str) -> dict:
+    """Phase 7c: ``ContinuousGenerationService`` with the JAX `serve`
+    defaults (8 slots, segments of 64, cache 2048, bf16) on the card: 16
+    requests of 10 + 1014 events from 16 threads at once, 8 greedy and 8
+    sampled, so half wait for a slot and join the running batch."""
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.ops import _build
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_segmented as seg
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+    from composer_tpu_torch.ops.decode_kernel_spec import teacher_forced_logits
+    from composer_tpu_torch.serving import ContinuousGenerationService
+
+    model, yaml_config = build_model(False, device)
+    config = model.config
+    rng = np.random.default_rng(21)
+    prompts = [encoded_prompt(yaml_config, PROMPT_EVENTS)] + [
+        rng.integers(0, 390, PROMPT_EVENTS).astype(np.int32) for _ in range(15)]
+    sampling = [(0.0, 0, 0.0)] * 8 + [(1.0, k, p) for k, p in (
+        (0, 0.0), (40, 0.0), (0, 0.9), (20, 0.95), (5, 0.0), (0, 0.8), (100, 0.9), (0, 0.0))]
+    service = ContinuousGenerationService(model, ModelType.TRANSFORMER, None, 390)
+    results, admitted = [None] * 16, {}
+    spans = KernelSpans(_build.load_library("decode_segment"))
+    load_library = _build.load_library
+    try:
+        packed = service.packed
+        if (service.slots, service.seg_steps, service.cache_len, service.capacity) != (
+                SERVE_SLOTS, SEGMENT_STEPS, SERVE_CACHE, SERVE_CACHE) \
+                or packed["wte"].dtype != torch.bfloat16 or packed["wte"].device != device:
+            raise AssertionError("the service did not take the serve defaults on the card")
+        service.submit(prompts[1], 64, temperature=0.0, deadline_ms=300_000)  # warm-up
+        admit = service._admit
+
+        def record(request, slot):
+            admit(request, slot)
+            admitted[request.prompt_ids.tobytes()] = (slot, int(service._starts[slot]))
+
+        service._admit = record
+        _build.load_library = lambda name="decode_segment": spans
+        segments_before = len(service.batch_sizes)
+
+        def call(i):
+            temperature, top_k, top_p = sampling[i]
+            results[i] = service.submit(prompts[i], GENERATE_EVENTS, temperature=temperature,
+                                        top_k=top_k, top_p=top_p, deadline_ms=600_000)
+
+        threads = [threading.Thread(target=call, args=(i,), daemon=True) for i in range(16)]
+        seg.decode_segment.launches = 0
+        start = time.perf_counter()
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=600)
+        wall = time.perf_counter() - start
+        launches = seg.decode_segment.launches
+        stats = service.overload_stats()
+        batch_sizes = service.batch_sizes[segments_before:]
+    finally:
+        _build.load_library = load_library
+        service.close()
+    busy_ms = spans.ms()
+    window_ms = spans.spans[0][0].elapsed_time(spans.spans[-1][1])
+    if any(r is None for r in results):
+        raise AssertionError("a request of the burst did not complete")
+    print(f"serve burst: 16 x ({PROMPT_EVENTS} + {GENERATE_EVENTS}) from 16 threads in "
+          f"{wall:.3f} s (host clock), {16 * GENERATE_EVENTS / wall:.1f} events/s; {launches} "
+          f"segment launches; device busy share {busy_ms / window_ms:.5f} (CUDA events around "
+          f"each segment: {busy_ms:.2f} ms of a {window_ms:.2f} ms device window, which ends "
+          f"with the segment still in flight after the last response); latency p50 "
+          f"{stats['latency_p50_s']:.3f} s, p95 {stats['latency_p95_s']:.3f} s; active rows "
+          f"per segment {batch_sizes} [{card}]", flush=True)
+    if launches < 1:
+        raise AssertionError("the service did not launch the segment kernel")
+    slot_starts = sorted(step for _, step in admitted.values())
+    if sum(step > slot_starts[0] for step in slot_starts) < 8:
+        raise AssertionError(f"fewer than 8 requests joined a running batch: {slot_starts}")
+
+    worst = 0.0
+    for i, ids in enumerate(results):
+        if ids.shape != (PROMPT_EVENTS + GENERATE_EVENTS,) or ids.min() < 0 or ids.max() >= 390 \
+                or not np.array_equal(ids[:PROMPT_EVENTS], prompts[i]):
+            raise AssertionError(f"request {i}: bad response {ids.shape}")
+        # Teacher-forced through the plain bf16 forward: row p scores the
+        # token after position p; a sampled row adds the kernel's noise of
+        # (seed, slot, global step) to its filtered, scaled logits.
+        logits = teacher_forced_logits(packed, ids, config=config)[PROMPT_EVENTS - 1:-1]
+        temperature, top_k, top_p = sampling[i]
+        scaled, noise = logits, torch.zeros_like(logits)
+        if temperature > 0:
+            slot, start_step = admitted[prompts[i].tobytes()]
+            steps = start_step + PROMPT_EVENTS - 1 + np.arange(GENERATE_EVENTS)
+            scaled = logits / temperature
+            noise = gumbel_rows(service._seed, slot, steps, packed["wte"].shape[0], device)
+        scale = float(scaled[:, :390].abs().max())
+        tokens = torch.as_tensor(ids[PROMPT_EVENTS:], dtype=torch.long, device=device)
+        gap = sampled_token_gap(scaled[:, :390], noise[:, :390], tokens, top_k, top_p,
+                                BF16_LOGIT_REL_TOL * scale)
+        worst = max(worst, gap)
+        if not gap <= BF16_LOGIT_REL_TOL * scale:
+            raise AssertionError(f"request {i}: a token scores {gap} below its row's max > "
+                                 f"{BF16_LOGIT_REL_TOL} x {scale}")
+    greedy = np.stack(prompts[:8])
+    temps, topk, topp = dk.row_params(8, 512, 0.0, 0, 0.0, True, False, False, device)
+    fused = decode_generate(packed, torch.as_tensor(greedy, device=device),
+                            torch.full((8,), PROMPT_EVENTS, dtype=torch.int32, device=device), 0,
+                            temps, topk, topp, None, None, config=config,
+                            num_steps=PROMPT_EVENTS + GENERATE_EVENTS - 1,
+                            out_len=GENERATE_EVENTS, cache_len=SERVE_CACHE,
+                            start_step=0).cpu().numpy()
+    agree = float((np.stack(results[:8])[:, PROMPT_EVENTS:] == fused).mean())
+    print(f"serve burst: every token of the 16 responses, teacher-forced through the plain "
+          f"bf16 forward, could have been kept and scores within {worst:.3e} of the best lane "
+          f"surely kept (limit {BF16_LOGIT_REL_TOL} x scale); slot starts {slot_starts}; "
+          f"greedy responses' agreement with decode_generate "
+          f"{agree:.4f}", flush=True)
+    return {"launches": launches, "agree": agree}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -985,7 +1398,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     start = time.perf_counter()
-    libraries = ("decode_generate", "flash_attention", "spec_decode")
+    libraries = ("decode_generate", "flash_attention", "spec_decode", "decode_segment")
     _build.build_all(libraries)
     for name in libraries:
         _build.load_library(name)
@@ -1001,6 +1414,9 @@ def main() -> int:
     flash_times = flash_timings(device, card)[(False, 0.0)]
     spec_error = spec_vs_plain(device)
     spec = spec_path(device, card, training["restored"])
+    segment_error = segment_vs_plain(device)
+    segment = segment_timings(device, card)
+    serve = serve_path(device, card)
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -1030,6 +1446,13 @@ def main() -> int:
         "replaces": "composer_tpu/ops/decode_kernel_spec.py:120", "launches": spec["launches"],
         "max_abs_err": spec_error, "ms": spec["ms"], "plain_ms": spec["plain_ms"],
         "bound_ms": spec["bound_ms"], "bound_by": spec["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "decode_segment", "route": "cuda",
+        "source": "composer_tpu_torch/csrc/decode_segment.cu",
+        "replaces": "composer_tpu/ops/decode_kernel_segmented.py:62",
+        "launches": serve["launches"], "max_abs_err": segment_error, "ms": segment["ms"],
+        "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
+        "bound_by": segment["bound_by"], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,3 +20,15 @@ class CheckpointError(ComposerError):
 
 class EncodingError(ComposerError):
     """Raised when an encoded event-sequence file is malformed."""
+
+
+class ServiceOverloadedError(ComposerError):
+    """Raised when a serving queue is at capacity (HTTP 429)."""
+
+
+class DeadlineExceededError(ComposerError):
+    """Raised when a request's deadline expires before completion (HTTP 503)."""
+
+
+class RequestCancelledError(ComposerError):
+    """Raised to a waiter whose request was cancelled before completion."""

@@ -38,7 +38,7 @@ from composer_tpu_torch.ops.decode_kernel import (
     vocab_pad,
 )
 
-# Threads per block; must match kThreads in csrc/decode_generate.cu.
+# Threads per block; must match kThreads in csrc/decode_common.cuh.
 KERNEL_THREADS = 512
 # Shared memory one block may use on Hopper (227 KB), static and dynamic
 # together.
@@ -49,8 +49,9 @@ STATIC_SHARED_BYTES = 16
 
 
 def kernel_smem_bytes(config, cache_len: int) -> int:
-    """Shared memory of one block, static and dynamic; mirrors the layout in
-    decode_generate.cu."""
+    """Shared memory of one block, static and dynamic; mirrors
+    ``step_smem_floats`` in decode_common.cuh (``cache_len`` score slots per
+    head)."""
     floats = (64 + 11 * config.embed_dim + 4 * vocab_pad(config) + config.num_heads * cache_len
               + KERNEL_THREADS * 8)
     return 4 * floats + STATIC_SHARED_BYTES
@@ -170,7 +171,7 @@ def _check_cuda_inputs(tensors, device, wdtype):
             # The kernel reads rows with 16-byte vector loads.
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
         expected = wdtype if name in _WEIGHT_NAMES else (
-            torch.int32 if name in ("prompts", "plens") else torch.float32)
+            torch.int32 if name in ("prompts", "plens", "starts") else torch.float32)
         if t.dtype != expected:
             raise ValueError(f"{name} has dtype {t.dtype}, expected {expected}")
 

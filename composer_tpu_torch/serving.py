@@ -1,0 +1,599 @@
+"""Continuous-batching generation service: port of ``composer_tpu/serving.py``
+(``ContinuousGenerationService`` and the overload controls it shares).
+
+A worker thread owns the device. The token loop runs in fixed-step
+segments of the Hopper kernel ``decode_segment``
+(``ops/decode_kernel_segmented.py``) with the KV cache kept on the card
+between segments; at every segment boundary finished rows are evicted
+(their waiters unblock at once) and queued requests are admitted into free
+slots, each with its own position clock. Two segments stay in flight: the
+worker launches segment k+1 before it reads segment k's tokens, so the
+device does not idle while the host collects them; admission therefore lags
+eviction by one segment.
+
+The HTTP layer (``GenerationService``, ``build_server``) is not ported yet
+(ROADMAP.md, Queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from composer_tpu_torch.exceptions import (
+    DeadlineExceededError,
+    InvalidParameterError,
+    RequestCancelledError,
+    ServiceOverloadedError,
+)
+from composer_tpu_torch.models import ModelType
+from composer_tpu_torch.models.transformer import init_cache
+from composer_tpu_torch.ops import decode_kernel as dk
+from composer_tpu_torch.ops import decode_kernel_segmented as seg
+
+
+@dataclasses.dataclass
+class _Request:
+    prompt_ids: np.ndarray
+    length: int
+    temperature: float
+    top_k: int
+    top_p: float
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+    result: Optional[np.ndarray] = None
+    error: Optional[Exception] = None
+    # Streaming: every harvested token chunk is pushed here; None ends it.
+    chunks: Optional["queue.Queue"] = None
+    # Absolute monotonic deadline (None = none) and a cancellation flag (set
+    # by the waiter on timeout, by a streaming client that left, or by the
+    # caller). The worker drops such requests before admission and evicts
+    # their rows at segment boundaries.
+    deadline: Optional[float] = None
+    cancel: threading.Event = dataclasses.field(default_factory=threading.Event)
+    submitted_at: float = dataclasses.field(default_factory=time.monotonic)
+    # Set by the waiter when its deadline wait timed out, so the worker's
+    # later drop of the same request counts as expired, not cancelled.
+    expired: bool = False
+
+
+def _fail(request: _Request, error: Exception) -> None:
+    request.error = error
+    if request.chunks is not None:
+        request.chunks.put(None)
+    request.done.set()
+
+
+class _OverloadControlMixin:
+    """Bounded-queue admission, per-request deadlines, cancellation and
+    latency/queue gauges. The speculative-engine fields are reported as
+    zeros: the continuous engine never runs the speculative kernel."""
+
+    def _init_overload(self, max_queue_depth: int, default_deadline_ms: float) -> None:
+        # 0 disables each control.
+        self.max_queue_depth = max(0, int(max_queue_depth))
+        self.default_deadline_s = max(0.0, float(default_deadline_ms) / 1000.0)
+        self._pending = 0  # submitted but not yet admitted
+        self.requests_rejected = 0
+        self.requests_expired = 0
+        self.requests_cancelled = 0
+        self._latencies = deque(maxlen=512)  # seconds, completed requests
+        self.spec_requests = 0
+        self._spec_acceptances = deque(maxlen=256)  # tokens per verify block
+
+    def _enqueue(self, request: _Request) -> None:
+        """Admission, atomic with close() and the queue-depth bound."""
+        with self._submit_lock:
+            if self._closed:
+                raise InvalidParameterError("The generation service is closed.")
+            if self.max_queue_depth and self._pending >= self.max_queue_depth:
+                self.requests_rejected += 1
+                raise ServiceOverloadedError(
+                    f"Serving queue is full ({self._pending} requests pending, limit "
+                    f"{self.max_queue_depth}); retry later.")
+            self._pending += 1
+            self._queue.put(request)
+
+    def _deadline_from(self, deadline_ms) -> Optional[float]:
+        if deadline_ms is None:
+            seconds = self.default_deadline_s
+        else:
+            seconds = float(deadline_ms) / 1000.0
+            if seconds <= 0:
+                raise InvalidParameterError("deadline_ms must be positive.")
+        return time.monotonic() + seconds if seconds > 0 else None
+
+    def _await(self, request: _Request) -> np.ndarray:
+        """Blocks the submitter and enforces the deadline from the waiting
+        side too, so a caller hears of it while the worker is busy."""
+        if request.deadline is None:
+            request.done.wait()
+        elif not request.done.wait(timeout=max(request.deadline - time.monotonic(), 0.0)):
+            request.expired = True
+            request.cancel.set()  # the worker drops or evicts it when it looks
+            with self._submit_lock:
+                self.requests_expired += 1
+            raise DeadlineExceededError(
+                f"Request deadline expired after {time.monotonic() - request.submitted_at:.3f}s "
+                f"(queue depth {self._pending}).")
+        if request.error is not None:
+            raise request.error
+        return request.result
+
+    def _take_pending(self, count: int = 1) -> None:
+        with self._submit_lock:
+            self._pending -= count
+
+    def _admissible(self, request: _Request) -> bool:
+        """Worker-side gate: fails (and counts) cancelled and expired
+        requests instead of spending device time on them."""
+        if request.cancel.is_set():
+            if not request.expired:  # the waiter already counted an expiry
+                with self._submit_lock:
+                    self.requests_cancelled += 1
+            _fail(request, RequestCancelledError("Request was cancelled before it ran."))
+            return False
+        if request.deadline is not None and time.monotonic() > request.deadline:
+            with self._submit_lock:
+                self.requests_expired += 1
+            _fail(request, DeadlineExceededError("Request deadline expired while queued."))
+            return False
+        return True
+
+    def _record_completion(self, request: _Request) -> None:
+        self.requests_completed += 1
+        self._latencies.append(time.monotonic() - request.submitted_at)
+
+    def overload_stats(self) -> dict:
+        latencies = sorted(self._latencies)
+
+        def pct(q: float):
+            if not latencies:
+                return None
+            return latencies[min(int(q * len(latencies)), len(latencies) - 1)]
+
+        acceptances = list(self._spec_acceptances)
+        return {
+            "queue_depth": int(self._pending),
+            "max_queue_depth": self.max_queue_depth,
+            "requests_rejected": int(self.requests_rejected),
+            "requests_expired": int(self.requests_expired),
+            "requests_cancelled": int(self.requests_cancelled),
+            "latency_p50_s": pct(0.50),
+            "latency_p95_s": pct(0.95),
+            "spec_requests": int(self.spec_requests),
+            "spec_acceptance_last": round(acceptances[-1], 3) if acceptances else None,
+            "spec_acceptance_mean": (round(sum(acceptances) / len(acceptances), 3)
+                                     if acceptances else None),
+        }
+
+    def _drain_queue(self) -> None:
+        """Fails the requests still queued at shutdown: their submitters
+        wait on ``done`` and must not hang."""
+        while True:
+            try:
+                leftover = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if leftover is None:
+                continue
+            self._take_pending()
+            _fail(leftover, InvalidParameterError(
+                "The generation service was closed before this request ran."))
+
+
+def _service_device(device) -> torch.device:
+    """The card unless the caller names another device; raises when the
+    card is asked for and torch has no CUDA."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("ContinuousGenerationService needs a CUDA device (torch has no "
+                           "CUDA here); pass device='cpu' to run the plain version")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class ContinuousGenerationService(_OverloadControlMixin):
+    """Continuous batching: requests join a running batch at segment
+    boundaries instead of waiting for the current batch to finish.
+
+    Same surface as the JAX package's service: ``submit``,
+    ``submit_stream``, ``close``, ``overload_stats``, ``max_batch_size``,
+    ``batch_sizes``, ``requests_completed`` and the prefix-cache counters.
+    ``variables`` is a state_dict for ``model`` or None for its own
+    parameters. Transformers only.
+
+    What differs from the JAX package, all because of the TPU: ``device``
+    takes the place of ``interpret`` (the card by default; ``"cpu"`` runs
+    the kernel's plain version, sampled requests included, which draw the
+    kernel's Philox bits); ``dtype`` defaults to bf16 on the card and f32 on
+    the CPU; ``kv_vmem_mb`` is accepted and ignored: ``capacity`` is the
+    largest multiple of ``live_bucket`` up to ``cache_len`` whose scores fit
+    the kernel's shared memory (``segment_kernel_fits``); ``engine`` ``auto``
+    and ``resident`` run the segment kernel, ``wide`` is not ported.
+
+    Samples are drawn from (service seed, slot, global step), so a row's
+    stream does not depend on how the loop is segmented nor on when other
+    rows were admitted; per-request seeds are not supported in this mode.
+    """
+
+    live_bucket = 256
+
+    def __init__(self, model, model_type: ModelType, variables, vocab_size: int,
+                 slots: int = 8, seg_steps: int = 64, cache_len: int = 2048, seed: int = 0,
+                 device=None, dtype=None, kv_vmem_mb: float = 64.0,
+                 max_queue_depth: int = 0, default_deadline_ms: float = 0.0,
+                 prefill_min: int = 128, prefix_cache_mb: float = 32.0, engine: str = "auto"):
+        del kv_vmem_mb  # a VMEM budget: the card's limit is segment_kernel_fits
+        if model_type != ModelType.TRANSFORMER:
+            raise InvalidParameterError("Continuous batching requires a transformer model.")
+        if engine not in ("auto", "resident", "wide"):
+            raise InvalidParameterError(
+                f"Continuous engine must be auto/resident/wide, got {engine!r}.")
+        if engine == "wide":
+            raise NotImplementedError(
+                "engine='wide' is not ported yet (ROADMAP.md, Queue 2 item 8).")
+        self.device = _service_device(device)
+        if dtype is None:
+            dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        self.model = model
+        self.model_type = model_type
+        self.config = model.config
+        self.vocab_size = vocab_size
+        state = variables if variables is not None else model.state_dict()
+        # Kept for the admission prefill, on the service's device.
+        self.params = {name: t.detach().to(self.device) for name, t in state.items()}
+        # Prompts of at least this many events are admitted with one prefill
+        # forward that fills the slot's KV rows, and the row starts mid-prompt
+        # instead of spending that many kernel steps on it. <= 0 disables.
+        self.prefill_min = int(prefill_min)
+        # Cross-request prefix cache: the KV rows of a prefill are a function
+        # of the (bucketed) prompt prefix, so a repeated prompt is admitted by
+        # copying cached device rows. LRU against a byte budget; 0 disables.
+        self.prefix_cache_bytes = int(max(0.0, prefix_cache_mb) * 1024 * 1024)
+        self._prefix_cache = OrderedDict()  # prefix bytes -> (k_rows, v_rows)
+        self._prefix_cache_used = 0
+        self.prefix_cache_hits = 0
+        self.prefix_cache_misses = 0
+        self.slots = int(slots)
+        self.seg_steps = int(seg_steps)
+        self.cache_len = max(-(-int(cache_len) // 128) * 128, 128)
+        self.width = min(self.config.window_size, self.cache_len)
+        self._seed = seed
+        fitting = [live for live in range(self.live_bucket, self.cache_len + self.live_bucket,
+                                          self.live_bucket)
+                   if seg.segment_kernel_fits(self.config, live)]
+        self.capacity = min(self.cache_len, max(fitting, default=0))
+        if self.capacity < min(self.width, 2 * self.live_bucket):
+            raise InvalidParameterError(
+                f"embed {self.config.embed_dim} x {self.config.num_heads} heads exceeds the "
+                f"segment kernel's shared memory at a {self.capacity}-row capacity; use a "
+                "smaller cache_len.")
+        if self.device.type == "cuda":
+            # Build and load the kernel here, on the caller's thread, so that a
+            # build failure raises from the constructor and not in a request.
+            from composer_tpu_torch.ops._build import load_library
+
+            load_library("decode_segment")
+        self.packed = dk.pack_weights(self.params, self.config, dtype=dtype, device=self.device)
+        self._state = seg.init_segment_state(self.packed, self.config, self.slots,
+                                             self.cache_len)
+        self.max_batch_size = self.slots
+        self._prompts = np.zeros((self.slots, self.width), np.int32)
+        self._plens = np.ones(self.slots, np.int32)
+        self._starts = np.full(self.slots, seg.PARKED, np.int32)
+        self._temps = np.zeros(self.slots, np.float32)
+        self._topks = np.zeros(self.slots, np.int32)
+        self._topps = np.zeros(self.slots, np.float32)
+        self._requests: list[Optional[_Request]] = [None] * self.slots
+        self._collected: list[list[int]] = [[] for _ in range(self.slots)]
+        self._step = 0
+        self.batch_sizes = []  # active rows per segment
+        self.requests_completed = 0
+
+        self._closed = False
+        # Guards the closed-check-then-enqueue pair against close(), and the
+        # overload gauges.
+        self._submit_lock = threading.Lock()
+        self._init_overload(max_queue_depth, default_deadline_ms)
+        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._worker = threading.Thread(target=self._run, name="continuous-generation-worker",
+                                        daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------------ public
+    def _request(self, prompt_ids, length, temperature, top_k, top_p, deadline_ms,
+                 cancel) -> _Request:
+        request = _Request(np.asarray(prompt_ids, dtype=np.int32).reshape(-1), int(length),
+                           float(temperature), int(top_k), float(top_p),
+                           deadline=self._deadline_from(deadline_ms))
+        if cancel is not None:
+            request.cancel = cancel
+        self._validate(request)
+        return request
+
+    def submit(self, prompt_ids, length: int, temperature: float = 1.0, top_k: int = 0,
+               top_p: float = 0.0, deadline_ms=None,
+               cancel: Optional[threading.Event] = None) -> np.ndarray:
+        """Blocks until the request is generated; returns prompt + new ids.
+        ``deadline_ms`` bounds queue and device time together;  ``cancel``
+        drops the request when set."""
+        request = self._request(prompt_ids, length, temperature, top_k, top_p, deadline_ms,
+                                cancel)
+        self._enqueue(request)
+        return self._await(request)
+
+    def submit_stream(self, prompt_ids, length: int, temperature: float = 1.0, top_k: int = 0,
+                      top_p: float = 0.0, deadline_ms=None,
+                      cancel: Optional[threading.Event] = None):
+        """Like :meth:`submit`, but yields token chunks as segments complete
+        (the first chunk is the prompt echo). Raises the generation's error,
+        if any, where it occurs. Setting ``cancel`` mid-stream evicts the row
+        at the next segment boundary."""
+        request = self._request(prompt_ids, length, temperature, top_k, top_p, deadline_ms,
+                                cancel)
+        request.chunks = queue.Queue()
+        self._enqueue(request)
+
+        def chunk_iter():
+            yield [int(t) for t in request.prompt_ids]
+            while True:
+                chunk = request.chunks.get()
+                if chunk is None:
+                    if request.error is not None:
+                        raise request.error
+                    return
+                yield chunk
+
+        return chunk_iter()
+
+    def close(self):
+        """Stops the worker once its active rows finish (waiting at most a
+        minute), fails the requests still queued, and releases the prefix
+        cache's device tensors."""
+        with self._submit_lock:
+            self._closed = True
+            self._queue.put(None)
+        self._worker.join(timeout=60)
+        self._drain_queue()
+        self._prefix_cache.clear()
+        self._prefix_cache_used = 0
+
+    def overload_stats(self) -> dict:
+        stats = super().overload_stats()
+        stats.update({
+            "prefix_cache_entries": len(self._prefix_cache),
+            "prefix_cache_bytes": int(self._prefix_cache_used),
+            "prefix_cache_hits": int(self.prefix_cache_hits),
+            "prefix_cache_misses": int(self.prefix_cache_misses),
+        })
+        return stats
+
+    def _validate(self, request: _Request):
+        prompt, length = request.prompt_ids, request.length
+        if prompt.size == 0:
+            raise InvalidParameterError("Prompt must contain at least one event.")
+        if prompt.min() < 0 or prompt.max() >= self.vocab_size:
+            raise InvalidParameterError(f"Prompt ids must be in [0, {self.vocab_size}).")
+        if length <= 0:
+            raise InvalidParameterError("length must be positive.")
+        if prompt.size > self.width:
+            raise InvalidParameterError(
+                f"Prompt of {prompt.size} events exceeds the serving window ({self.width}).")
+        if prompt.size + length > self.capacity:
+            raise InvalidParameterError(
+                f"prompt ({prompt.size}) + length ({length}) exceeds the serving capacity "
+                f"({self.capacity}).")
+
+    # ------------------------------------------------------------------ worker
+    @staticmethod
+    def _prefix_rows(prefix_len: int) -> int:
+        """Prefixes bucket to multiples of 64 (keeping the bucket within about
+        one segment of the full prefix), so repeated prompts hit the cache."""
+        return (prefix_len // 64) * 64 if prefix_len >= 64 else prefix_len
+
+    def _prefix_cache_insert(self, key: bytes, k_rows, v_rows) -> None:
+        nbytes = 2 * k_rows.numel() * k_rows.element_size()
+        if nbytes > self.prefix_cache_bytes:
+            return
+        self._prefix_cache[key] = (k_rows, v_rows)
+        self._prefix_cache_used += nbytes
+        while self._prefix_cache_used > self.prefix_cache_bytes:
+            _, (old_k, _) = self._prefix_cache.popitem(last=False)
+            self._prefix_cache_used -= 2 * old_k.numel() * old_k.element_size()
+
+    def _prefill_slot(self, prompt_ids: np.ndarray, slot: int) -> int:
+        """Fills the slot's KV rows for the prompt prefix, from the prefix
+        cache or with one Transformer forward, and returns the number of
+        positions filled (0 below ``prefill_min``)."""
+        plen = prompt_ids.shape[0]
+        if self.prefill_min <= 0 or plen - 1 < self.prefill_min:
+            return 0
+        rows = self._prefix_rows(plen - 1)
+        prefix = prompt_ids[:rows].astype(np.int32)
+        key = prefix.tobytes() if self.prefix_cache_bytes else None
+        cached = self._prefix_cache.get(key) if key is not None else None
+        if cached is not None:
+            self._prefix_cache.move_to_end(key)
+            self.prefix_cache_hits += 1
+            k_rows, v_rows = cached
+        else:
+            cache = init_cache(self.config, 1, rows, device=self.device)
+            tokens = torch.as_tensor(prefix[None], device=self.device).long()
+            with torch.no_grad():
+                _, cache = torch.func.functional_call(self.model, self.params, (tokens, cache))
+            k_rows, v_rows = dk.cache_to_rows(cache, self.config, rows,
+                                              dtype=self.packed["wte"].dtype)
+            if key is not None:
+                self.prefix_cache_misses += 1
+                self._prefix_cache_insert(key, k_rows, v_rows)
+        kcache, vcache, _ = self._state
+        base = slot * self.cache_len
+        kcache[:, base:base + rows] = k_rows
+        vcache[:, base:base + rows] = v_rows
+        return rows
+
+    def _admit(self, request: _Request, slot: int):
+        self._requests[slot] = request
+        self._collected[slot] = []
+        plen = request.prompt_ids.shape[0]
+        self._prompts[slot, :] = 0
+        self._prompts[slot, :plen] = request.prompt_ids
+        self._plens[slot] = plen
+        # A prefilled row starts its clock mid-prompt: cache rows [0,
+        # prefilled) hold the prefix, the kernel forces only the rest.
+        self._starts[slot] = self._step - self._prefill_slot(request.prompt_ids, slot)
+        self._temps[slot] = request.temperature
+        self._topks[slot] = request.top_k
+        self._topps[slot] = request.top_p
+
+    def _evict(self, slot: int):
+        self._requests[slot] = None
+        self._collected[slot] = []
+        self._starts[slot] = seg.PARKED
+        self._temps[slot] = 0.0
+        self._topks[slot] = 0
+        self._topps[slot] = 0.0
+
+    def _dispatch(self):
+        """Launches one segment; returns what ``_harvest`` needs, its tokens
+        still in flight."""
+        active = self._starts != seg.PARKED
+        # Attention reads only the cache prefix the oldest row can reach in
+        # this segment, rounded up to a bucket. A finished row lingering past
+        # `capacity` clamps in the kernel (its tokens are discarded).
+        end = self._step + self.seg_steps
+        live_needed = int((end - self._starts[active]).max()) if active.any() else 1
+        live = min(self.capacity, -(-max(live_needed, 1) // self.live_bucket) * self.live_bucket)
+        kcache, vcache, carry = self._state
+        # decode_segment uploads fresh copies of the host arrays.
+        tokens, kcache, vcache, carry = seg.decode_segment(
+            self.packed, kcache, vcache, carry, self._prompts, self._plens, self._starts,
+            self._step, self._seed, self._temps, self._topks, self._topps,
+            config=self.config, steps=self.seg_steps, cache_len=self.cache_len, live=live)
+        self._state = (kcache, vcache, carry)
+        ready = None
+        if tokens.is_cuda:
+            # Copy the tokens out behind the kernel and mark the copy's end:
+            # reading them later waits for this segment only, not for the
+            # segment launched after it.
+            host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+            host.copy_(tokens, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            tokens = host
+        snapshot = (self._step, self._starts.copy(), self._plens.copy(), list(self._requests),
+                    tokens, ready)
+        self.batch_sizes.append(int(active.sum()))
+        self._step += self.seg_steps
+        return snapshot
+
+    def _harvest(self, snapshot):
+        """Reads a dispatched segment's tokens and completes the rows whose
+        generations finished inside it."""
+        step0, starts, plens, requests, tokens, ready = snapshot
+        if ready is not None:
+            ready.synchronize()
+        tokens = tokens.numpy()
+        for slot, request in enumerate(requests):
+            if request is None or self._requests[slot] is not request:
+                continue
+            # The row's generation is its samples from step starts+plen-1 on.
+            first = int(starts[slot]) + int(plens[slot]) - 1
+            lo = max(first - step0, 0)
+            collected = self._collected[slot]
+            need = request.length - len(collected)
+            if need > 0 and lo < tokens.shape[1]:
+                take = [int(t) for t in tokens[slot, lo:lo + need]]
+                collected.extend(take)
+                if request.chunks is not None and take:
+                    request.chunks.put(take)
+            if len(collected) >= request.length:
+                request.result = np.concatenate(
+                    [request.prompt_ids, np.asarray(collected[:request.length], np.int32)])
+                # Counted before the waiter wakes, so the gauges include it.
+                self._record_completion(request)
+                if request.chunks is not None:
+                    request.chunks.put(None)
+                request.done.set()
+                self._evict(slot)
+
+    def _abandon_rows(self):
+        """Evicts running rows whose requests were cancelled or whose
+        deadline expired, so an abandoned generation stops using its slot."""
+        now = time.monotonic()
+        for slot, request in enumerate(self._requests):
+            if request is None:
+                continue
+            if request.cancel.is_set():
+                if not request.expired:
+                    with self._submit_lock:
+                        self.requests_cancelled += 1
+                _fail(request, RequestCancelledError("Request was cancelled mid-generation."))
+                self._evict(slot)
+            elif request.deadline is not None and now > request.deadline:
+                with self._submit_lock:
+                    self.requests_expired += 1
+                _fail(request, DeadlineExceededError("Request deadline expired mid-generation."))
+                self._evict(slot)
+
+    def _run(self):
+        if self.device.type == "cuda":
+            # The current device is per thread.
+            with torch.cuda.device(self.device):
+                self._serve()
+        else:
+            self._serve()
+
+    def _serve(self):
+        inflight = []
+        closing = False
+        while True:
+            # Admit queued requests into free slots (blocks when idle).
+            while not closing:
+                free = [s for s in range(self.slots) if self._requests[s] is None]
+                if not free:
+                    break
+                block = not inflight and all(r is None for r in self._requests)
+                try:
+                    nxt = self._queue.get(block=block)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    closing = True
+                    break
+                self._take_pending()
+                if self._admissible(nxt):
+                    try:
+                        self._admit(nxt, free[0])
+                    except Exception as error:  # a failed prefill fails its request
+                        self._evict(free[0])
+                        _fail(nxt, error)
+            self._abandon_rows()
+
+            if all(r is None for r in self._requests):
+                # Nothing active: drop the segments still in flight (their
+                # rows all completed) and block on the queue again.
+                inflight.clear()
+                if closing:
+                    return
+                continue
+
+            try:
+                inflight.append(self._dispatch())
+                # Keep two segments in flight; harvest the oldest.
+                if len(inflight) > 1:
+                    self._harvest(inflight.pop(0))
+            except Exception as error:  # surface to every active waiter
+                for slot, request in enumerate(self._requests):
+                    if request is not None:
+                        _fail(request, error)
+                        self._evict(slot)
+                inflight.clear()

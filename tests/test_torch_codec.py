@@ -5,12 +5,14 @@ import numpy as np
 import pytest
 
 from composer_tpu import ModelSaveFrequencyMode as JaxSaveMode
+from composer_tpu import exceptions as jax_exceptions
 from composer_tpu.config import get_default as jax_get_default
 from composer_tpu.data.loader import WindowDataset as JaxWindowDataset
 from composer_tpu.midi import events as jax_events
 from composer_tpu.midi import midi_io as jax_midi_io
 from composer_tpu.models import get_event_vocab_size as jax_vocab_size
 from composer_tpu_torch import ModelSaveFrequencyMode
+from composer_tpu_torch import exceptions
 from composer_tpu_torch.config import get_default
 from composer_tpu_torch.data import WindowDataset
 from composer_tpu_torch.exceptions import DatasetError
@@ -80,3 +82,12 @@ def test_window_dataset_matches_the_original(shuffle):
             np.testing.assert_array_equal(y, jy)
     with pytest.raises(DatasetError):
         WindowDataset(stream[:10], 3, 64)
+
+
+@pytest.mark.parametrize("name", ["ComposerError", "InvalidParameterError", "DatasetError",
+                                  "CheckpointError", "EncodingError", "ServiceOverloadedError",
+                                  "DeadlineExceededError", "RequestCancelledError"])
+def test_exceptions_match_the_original(name):
+    ours, theirs = getattr(exceptions, name), getattr(jax_exceptions, name)
+    assert ours.__doc__ == theirs.__doc__
+    assert [base.__name__ for base in ours.__mro__] == [base.__name__ for base in theirs.__mro__]
