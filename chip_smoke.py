@@ -89,6 +89,30 @@ Phases (any failure exits non-zero):
    segment against the device window) and the greedy responses' agreement
    with ``decode_generate`` are printed.
 
+8. The wide decode kernel ``decode_wide`` (csrc/decode_wide.cu) and
+   ``generate_ids``' wide route. (a) Kernel against plain version, 8 ragged
+   rows x 150 steps at cache 256 (past the int8 K/V window at 128), greedy
+   and sampled with per-row top-k / top-p: float32 weights give identical
+   ids and last-step logits within 1e-3, with float and int8 K/V, at the
+   default widths (relative attention off and on, where the ids also equal
+   one ``decode_generate`` launch; and batch 1 x 600 steps, 8 key splits)
+   and at the embed-1024 flagship's (random weights from a numpy seed),
+   where a second call on the reused K/V state equals a fresh one. int8
+   weights compute on bf16-rounded activations: their ids, teacher-forced
+   through the plain version, must pass the bf16 rule
+   (``wide_teacher_forced_gap``). (b) The flagship in bf16 through
+   ``generate_ids(engine="auto")``, 8 x (10 + 1014) from a codec-encoded
+   prompt and 1 x (10 + 1014), sampled: the wide kernel's launch count must
+   rise and ``decode_generate``'s not, ids lie in the vocabulary, a MIDI file
+   is written, and every token, teacher-forced through the plain bf16
+   forward with the kernel's noise, passes ``sampled_token_gap``; events/s
+   and the device's busy share are printed. (c) CUDA-event times at B=8 and
+   B=1 of the kernel in bf16, int8 weights and int8 weights + int8 K/V
+   against ``wide_bound``, the kernel's own clock by phase, the plain
+   version and one ``decode_generate`` launch on the same weights (the
+   route ``auto`` took before the wide kernel); then the default model's
+   wide time beside ``decode_generate``'s.
+
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
 H100 SXM's published peaks), then, as the last line,
@@ -1385,10 +1409,401 @@ def serve_path(device, card: str) -> dict:
     return {"launches": launches, "agree": agree}
 
 
+FLAGSHIP = dict(vocab_size=390, embed_dim=1024, window_size=2048, num_layers=8, num_heads=16,
+                use_relative_attention=True)  # docs/validation.md:148-170
+WIDE_CHECK_CACHE = 256  # 150 steps: past the int8 K/V window at 128
+WIDE_SAMPLED = (np.array([1.0, 0.8, 0.0, 1.2, 1.0, 0.7, 1.0, 1.0], np.float32),
+                np.array([0, 20, 0, 5, 0, 40, 0, 3]),
+                np.array([0.9, 0.0, 0.0, 0.8, 0.0, 0.95, 0.0, 0.0], np.float32))
+
+
+def build_flagship(device):
+    """The embed-1024 flagship (the best-NLL model of the TPU rounds) with
+    random weights from a numpy seed."""
+    from composer_tpu_torch.models.convert import params_from_flax
+    from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
+
+    config = TransformerConfig(**FLAGSHIP)
+    model = Transformer(config)
+    model.load_state_dict(params_from_flax(random_flax_params(config, seed=8), config))
+    return model.to(device).eval()
+
+
+def wide_run(packed, config, prompts, plens, sampling, *, length, cache_len, plain=False,
+             quantize_kv=False, state=None, seed=3, phase_ns=None):
+    """One generation by the wide kernel (``phase_ns``: its clock) or its
+    plain version: (ids on the host, last-step logits, K/V state)."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+
+    device = packed["wte"].device
+    batch, width = prompts.shape
+    vpad = packed["wte"].shape[0]
+    rows = dk.row_params(batch, vpad, *sampling, *dk.sampling_flags(*sampling), device)
+    if state is None:
+        state = dw.init_kv_state(config, batch, cache_len, packed["wte"].dtype, quantize_kv,
+                                 device)
+    logits = torch.zeros((batch, vpad), device=device)
+    num_steps = width + length - 1
+    args = (packed, state, torch.as_tensor(prompts, dtype=torch.int32, device=device),
+            torch.as_tensor(plens, dtype=torch.int32, device=device), seed, *rows)
+    kwargs = dict(config=config, num_steps=num_steps, out_len=num_steps, cache_len=cache_len,
+                  logits_out=logits)
+    if plain:
+        ids = dw.decode_wide_reference(*args, **kwargs)
+    else:
+        ids = dw.decode_wide(*args, **kwargs, phase_ns=phase_ns)
+    torch.cuda.synchronize()
+    return ids.cpu(), logits, state
+
+
+def wide_teacher_forced_gap(packed, config, prompts, plens, sampling, ids, *, cache_len,
+                           quantize_kv=False, seed=3) -> float:
+    """The bf16 rule for a wide run's ids ``(B, num_steps)`` (``wide_run``):
+    each row's stream, teacher-forced through the plain version, must score
+    every emitted token within 2% of the logits' scale of a token the kernel
+    could have sampled (``sampled_token_gap``, with the kernel's Philox noise
+    of (seed, row, step) on a sampled row). Returns the largest gap over
+    its row's scale."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+
+    device = packed["wte"].device
+    vpad, vocab = packed["wte"].shape[0], config.vocab_size
+    batch, num_steps = ids.shape
+    streams = np.zeros((batch, num_steps + 1), np.int32)
+    for b, plen in enumerate(plens):
+        streams[b, :plen] = prompts[b, :plen]
+        streams[b, plen:] = ids[b, :num_steps + 1 - plen].numpy()
+    temps, topks, topps = (np.broadcast_to(np.asarray(v), (batch,)) for v in sampling)
+    rows = dk.row_params(batch, vpad, *sampling, *dk.sampling_flags(*sampling), device)
+    logits = torch.zeros((batch, num_steps, vpad), device=device)
+    dw.decode_wide_reference(
+        packed, dw.init_kv_state(config, batch, cache_len, packed["wte"].dtype, quantize_kv,
+                                 device),
+        torch.as_tensor(streams, device=device),
+        torch.full((batch,), num_steps + 1, dtype=torch.int32, device=device), seed, *rows,
+        config=config, num_steps=num_steps, out_len=1, cache_len=cache_len,
+        step_logits=logits)
+    worst = 0.0
+    for b, plen in enumerate(plens):
+        steps = np.arange(plen - 1, num_steps)
+        scaled = logits[b, steps, :vocab]
+        noise = torch.zeros_like(scaled)
+        top_k, top_p = 0, 0.0
+        if temps[b] > 0:
+            scaled = scaled / float(temps[b])
+            noise = gumbel_rows(seed, b, steps, vpad, device)[:, :vocab]
+            top_k, top_p = int(topks[b]), float(topps[b])
+        scale = float(scaled.abs().max())
+        tokens = torch.as_tensor(streams[b, steps + 1], dtype=torch.long, device=device)
+        gap = sampled_token_gap(scaled, noise, tokens, top_k, top_p, BF16_LOGIT_REL_TOL * scale)
+        if not gap <= BF16_LOGIT_REL_TOL * scale:
+            raise AssertionError(f"row {b}: a token scores {gap} below the best it could have "
+                                 f"sampled > {BF16_LOGIT_REL_TOL} x {scale}")
+        worst = max(worst, gap / scale)
+    return worst
+
+
+def wide_vs_plain(device, flagship) -> float:
+    """Phase 8a; returns the largest float32 last-step logits error."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+
+    worst = 0.0
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, 390, (8, 9)).astype(np.int32)
+    plens = np.array([9, 3, 6, 1, 9, 4, 7, 2], np.int32)
+    greedy = (0.0, 0, 0.0)
+
+    def check(name, packed, config, sampling, *, rows=8, length=142, cache_len=WIDE_CHECK_CACHE,
+              quantize_kv=False):
+        """float32: identical ids and last-step logits within F32_LOGIT_TOL.
+        int8 weights compute on bf16-rounded activations, where a rounding
+        can move by one bf16 step and a near-tie flip: the bf16 rule on the
+        kernel's ids teacher-forced through the plain version."""
+        nonlocal worst
+        sampling = tuple(v[:rows] if np.ndim(v) else v for v in sampling)
+        args = (packed, config, prompts[:rows], plens[:rows], sampling)
+        kwargs = dict(length=length, cache_len=cache_len, quantize_kv=quantize_kv)
+        ours, logits, state = wide_run(*args, **kwargs)
+        plain, plain_logits, _ = wide_run(*args, **kwargs, plain=True)
+        agree = float((ours == plain).float().mean())
+        if packed["big_w"].dtype != torch.float32:
+            gap = wide_teacher_forced_gap(*args, ours, cache_len=cache_len,
+                                          quantize_kv=quantize_kv)
+            print(f"wide {name}: ids agreement with the plain version {agree:.4f}; every token, "
+                  f"teacher-forced through it, within {gap:.3e} of scale (limit "
+                  f"{BF16_LOGIT_REL_TOL})", flush=True)
+            return ours, state
+        err = float((logits - plain_logits).abs().max())
+        if not torch.equal(ours, plain):
+            raise AssertionError(f"wide {name}: kernel and plain version differ, agreement "
+                                 f"{agree:.4f}")
+        if err > F32_LOGIT_TOL:
+            raise AssertionError(f"wide {name}: last-step logits differ by {err} > "
+                                 f"{F32_LOGIT_TOL}")
+        worst = max(worst, err)
+        print(f"wide {name}: ids identical ({ours.shape[0]} x {ours.shape[1]}, "
+              f"{len(set(ours.ravel().tolist()))} distinct), last-step logits max_abs_err "
+              f"{err:.3e} (limit {F32_LOGIT_TOL})", flush=True)
+        return ours, state
+
+    for use_relative in (False, True):
+        model, _ = build_model(use_relative, device)
+        config = model.config
+        packed = dw.pack_weights_wide(model.state_dict(), config, dtype=torch.float32)
+        fused = dk.pack_weights(model.state_dict(), config, dtype=torch.float32, device=device)
+        for kind, sampling in (("greedy", greedy), ("sampled", WIDE_SAMPLED)):
+            ours, _ = check(f"default rel={use_relative} {kind} f32", packed, config, sampling)
+            rows = dk.row_params(8, 512, *sampling, *dk.sampling_flags(*sampling), device)
+            theirs = decode_generate(
+                fused, torch.as_tensor(prompts, device=device), torch.as_tensor(plens, device=device),
+                3, *rows, None, None, config=config, num_steps=150, out_len=150,
+                cache_len=WIDE_CHECK_CACHE, start_step=0).cpu()
+            if not torch.equal(ours, theirs):
+                raise AssertionError(f"wide default rel={use_relative} {kind}: ids differ from "
+                                     "decode_generate's")
+        print(f"wide default rel={use_relative}: greedy and sampled ids equal one "
+              "decode_generate launch with the same seed", flush=True)
+    check("default B=1 x (9 + 592) greedy f32 (8 key splits)", packed, config, greedy, rows=1,
+          length=592, cache_len=640)
+    check("default f32 weights + int8 K/V sampled", packed, config, WIDE_SAMPLED,
+          quantize_kv=True)
+    int8 = dw.pack_weights_wide(model.state_dict(), config, dtype=torch.int8)
+    for quantize_kv in (False, True):
+        check(f"default int8 weights{' + int8 K/V' if quantize_kv else ''} sampled", int8,
+              config, WIDE_SAMPLED, quantize_kv=quantize_kv)
+
+    config = flagship.config
+    packed = dw.pack_weights_wide(flagship.state_dict(), config, dtype=torch.float32)
+    check("flagship greedy f32", packed, config, greedy)
+    _, state = check("flagship sampled f32", packed, config, WIDE_SAMPLED)
+    check("flagship B=1 greedy f32", packed, config, greedy, rows=1)
+    # The sampled run's state, dirtied, serves other prompts: equal to fresh.
+    other = np.roll(prompts, 1, axis=0)
+    args = (packed, config, other, plens, WIDE_SAMPLED)
+    reused, _, _ = wide_run(*args, length=142, cache_len=WIDE_CHECK_CACHE, state=state)
+    fresh, _, _ = wide_run(*args, length=142, cache_len=WIDE_CHECK_CACHE)
+    if not torch.equal(reused, fresh):
+        raise AssertionError("wide: a reused K/V state gives other ids than a fresh one")
+    print("wide flagship: a second call on the reused K/V state equals a fresh one", flush=True)
+    check("flagship f32 weights + int8 K/V sampled", packed, config, WIDE_SAMPLED,
+          quantize_kv=True)
+    del packed, state
+    int8 = dw.pack_weights_wide(flagship.state_dict(), config, dtype=torch.int8)
+    for quantize_kv in (False, True):
+        check(f"flagship int8 weights{' + int8 K/V' if quantize_kv else ''} sampled", int8,
+              config, WIDE_SAMPLED, quantize_kv=quantize_kv)
+    return worst
+
+
+def wide_bound(packed, config, batch: int, num_steps: int, kv_bytes: int):
+    """One wide generation. Each step streams the matmul weights and the
+    tied head again: about 200 MB at embed 1024 against the H100's 50 MB of
+    L2 and 33 MB of shared memory, so they cannot stay on chip. The other
+    tables, the prompts and the ids move once. Per step and layer each row
+    writes one K/V row and reads its prefix [0, pos] (``kv_bytes`` a value,
+    int8 rows with their two float32 scales), and the step reads the
+    relative band once (``min(pos + 1, W)`` rows, shared by the rows). The
+    operations are decode_bound's."""
+    E, L, W = config.embed_dim, config.num_layers, config.window_size
+    size = {name: t.numel() * t.element_size() for name, t in packed.items()}
+    streamed = sum(size.get(name, 0) for name in ("big_w", "fp_w", "wscale", "fpscale",
+                                                  "logits_w"))
+    once = sum(size.values()) - streamed
+    if not config.use_relative_attention:
+        once -= size["rel_rows"]
+    steps = np.arange(num_steps)
+    keys = int((steps + 1).sum())
+    band_rows = int(np.minimum(steps + 1, W).sum()) if config.use_relative_attention else 0
+    kv_row = 2 * E * kv_bytes + (8 if kv_bytes == 1 else 0)
+    byte_count = (num_steps * streamed + once + L * batch * (keys + num_steps) * kv_row
+                  + L * band_rows * E * packed["rel_rows"].element_size()
+                  + batch * (PROMPT_EVENTS + num_steps + 1) * 4)
+    per_key = 6 if config.use_relative_attention else 4
+    flops = batch * (num_steps * (L * 24 * E * E + 2 * E * config.vocab_size)
+                     + L * per_key * E * keys)
+    return bound(byte_count, flops)
+
+
+def flagship_path(device, card: str, flagship, yaml_config) -> dict:
+    """Phase 8b: the flagship through ``generate_ids(engine="auto")`` in
+    bf16, B=8 x (10 + 1014) and B=1 x (10 + 1014), sampled."""
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.ops import _build
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+    from composer_tpu_torch.ops.decode_kernel_spec import teacher_forced_logits
+    from composer_tpu_torch.train import generate as gen
+
+    config = flagship.config
+    prompt = encoded_prompt(yaml_config, PROMPT_EVENTS)
+    # Packs the weights; not counted.
+    gen.generate_ids(flagship, ModelType.TRANSFORMER, None, prompt, length=16, engine="auto")
+    spans = KernelSpans(_build.load_library("decode_wide"))
+    load_library = _build.load_library
+
+    def call(prompts, seed):
+        """(ids, host wall s, device window ms, kernel ms) of one call."""
+        window = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        spans.spans.clear()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        window[0].record()
+        ids = gen.generate_ids(flagship, ModelType.TRANSFORMER, None, prompts,
+                               length=GENERATE_EVENTS, temperature=1.0, seed=seed,
+                               engine="auto")
+        window[1].record()
+        wall = time.perf_counter() - start
+        return ids, wall, window[0].elapsed_time(window[1]), spans.ms()
+
+    _build.load_library = lambda name="decode_generate": (
+        spans if name == "decode_wide" else load_library(name))
+    try:
+        dw.decode_wide.launches = 0
+        decode_generate.launches_batched = decode_generate.launches_single = 0
+        ids8, wall8, window8, kernel8 = call(np.tile(prompt, (8, 1)), 2)
+        ids1, wall1, window1, kernel1 = call(prompt, 3)
+        launches = dw.decode_wide.launches
+        fused = decode_generate.launches_batched + decode_generate.launches_single
+    finally:
+        _build.load_library = load_library
+    print(f"flagship main path: decode_wide launches {launches}, decode_generate launches "
+          f"{fused}", flush=True)
+    if launches != 2 or fused:
+        raise AssertionError("auto did not route the flagship to the wide kernel")
+    engine = gen._WIDE_ENGINE_CACHE["engine"]
+    if engine.packed["big_w"].dtype != torch.bfloat16:
+        raise AssertionError("the wide engine did not pack bf16 weights on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        size = write_midi(ids8[0], yaml_config, Path(tmp) / "flagship.mid")
+    if size <= 0:
+        raise AssertionError("the MIDI file is empty")
+
+    # Every emitted token, teacher-forced through the plain bf16 forward with
+    # the kernel's Philox noise of (seed, row, step), must be one a kernel
+    # could have sampled with every logit within 1% of their scale.
+    fused_packed = dk.pack_weights(flagship.state_dict(), config, dtype=torch.bfloat16,
+                                   device=device)
+    worst = 0.0
+    for name, ids, seed in (("B=8", ids8, 2), ("B=1", ids1[None], 3)):
+        if ids.shape[1] != PROMPT_EVENTS + GENERATE_EVENTS or ids.min() < 0 or ids.max() >= 390:
+            raise AssertionError(f"flagship {name}: bad ids {ids.shape}")
+        for row, stream in enumerate(ids):
+            logits = teacher_forced_logits(fused_packed, stream, config=config)
+            logits = logits[PROMPT_EVENTS - 1:-1, :390]
+            steps = PROMPT_EVENTS - 1 + np.arange(GENERATE_EVENTS)
+            noise = gumbel_rows(seed, row, steps, 512, device)[:, :390]
+            scale = float(logits.abs().max())
+            tokens = torch.as_tensor(stream[PROMPT_EVENTS:], dtype=torch.long, device=device)
+            gap = sampled_token_gap(logits, noise, tokens, 0, 0.0, BF16_LOGIT_REL_TOL * scale)
+            if not gap <= BF16_LOGIT_REL_TOL * scale:
+                raise AssertionError(f"flagship {name} row {row}: a token scores {gap} below "
+                                     f"its row's max > {BF16_LOGIT_REL_TOL} x {scale}")
+            worst = max(worst, gap / scale)
+        print(f"flagship {name}: {ids.shape[0]} x {ids.shape[1]} ids, "
+              f"{len(set(ids[:, PROMPT_EVENTS:].ravel().tolist()))} distinct generated; every "
+              f"token teacher-forced through the plain bf16 forward within "
+              f"{worst:.3e} of scale (limit {BF16_LOGIT_REL_TOL})", flush=True)
+    print(f"flagship MIDI written: {size} bytes", flush=True)
+    for name, batch, wall, window, kernel in (("B=8", 8, wall8, window8, kernel8),
+                                              ("B=1", 1, wall1, window1, kernel1)):
+        print(f"flagship generate_ids {name} x {GENERATE_EVENTS}: "
+              f"{batch * GENERATE_EVENTS / wall:.1f} events/s ({wall:.3f} s host clock); device "
+              f"window {window:.3f} ms, kernel {kernel:.3f} ms, busy share "
+              f"{kernel / window:.5f} [{card}]", flush=True)
+    return {"launches": launches, "engine": engine, "fused_packed": fused_packed,
+            "prompt": prompt}
+
+
+def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: float) -> dict:
+    """Phase 8c: the kernel in bf16, int8 weights and int8 weights + int8 K/V
+    (CUDA events, after a warm-up), the plain version (host clock after a
+    synchronize) and one decode_generate launch on the same weights, at
+    B=8 and B=1 x (10 + 1014), sampled; then the default model's wide time
+    beside decode_generate's."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+
+    config = flagship.config
+    packs = {"bf16": (path["engine"].packed, False),
+             "int8": (dw.pack_weights_wide(flagship.state_dict(), config, torch.int8), False)}
+    packs["int8 + int8 K/V"] = (packs["int8"][0], True)
+    num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
+    sampled = (1.0, 0, 0.0)
+    result = {}
+    for batch in (8, 1):
+        prompts = np.tile(path["prompt"], (batch, 1))
+        plens = np.full(batch, PROMPT_EVENTS, np.int32)
+        events = batch * GENERATE_EVENTS
+        times = {}
+        for name, (packed, quantize_kv) in packs.items():
+            state = dw.init_kv_state(config, batch, 1024, packed["wte"].dtype, quantize_kv,
+                                     device)
+            times[name] = cuda_ms(lambda: wide_run(packed, config, prompts, plens, sampled,
+                                                   length=GENERATE_EVENTS, cache_len=1024,
+                                                   state=state), 2)
+            kv_bytes = 1 if quantize_kv else 2
+            ms, by = wide_bound(packed, config, batch, num_steps, kv_bytes)
+            print(f"flagship wide kernel {name} B={batch} x {GENERATE_EVENTS}: "
+                  f"{times[name]:.2f} ms ({events / times[name] * 1e3:.1f} events/s); bound "
+                  f"{ms:.2f} ms ({by}) [{card}]", flush=True)
+            times[f"bound {name}"] = (ms, by)
+        # Where the time goes: the kernel's clock (block 0, from one grid
+        # barrier to the next) by phase, one more bf16 run.
+        clock = torch.zeros(len(dw.PHASES), dtype=torch.int64, device=device)
+        wide_run(packs["bf16"][0], config, prompts, plens, sampled, length=GENERATE_EVENTS,
+                 cache_len=1024, phase_ns=clock)
+        clock_ms = clock.cpu().numpy() / 1e6
+        phases = ", ".join(f"{name} {ms:.2f} ms ({ms / clock_ms.sum():.3f})"
+                           for name, ms in zip(dw.PHASES, clock_ms))
+        print(f"flagship wide kernel bf16 B={batch} by phase (8 layers x 5 + 2 barriers a "
+              f"step): {phases}; {clock_ms.sum():.2f} ms in all [{card}]", flush=True)
+        start = time.perf_counter()
+        wide_run(packs["bf16"][0], config, prompts, plens, sampled, length=GENERATE_EVENTS,
+                 cache_len=1024, plain=True)
+        plain_ms = (time.perf_counter() - start) * 1e3
+        rows = dk.row_params(batch, 512, *sampled, *dk.sampling_flags(*sampled), device)
+        fused_args = (path["fused_packed"], torch.as_tensor(prompts, device=device),
+                      torch.as_tensor(plens, device=device), 0, *rows, None, None)
+
+        def fused(steps):
+            return decode_generate(*fused_args, config=config, num_steps=steps,
+                                   out_len=steps - PROMPT_EVENTS + 1, cache_len=1024,
+                                   start_step=0)
+
+        fused(PROMPT_EVENTS + 15)  # warm-up
+        fused_ms = cuda_ms(lambda: fused(num_steps), 1)
+        print(f"flagship B={batch} x {GENERATE_EVENTS} bf16: wide kernel {times['bf16']:.2f} ms, "
+              f"plain version {plain_ms:.2f} ms ({events / plain_ms * 1e3:.1f} events/s), "
+              f"decode_generate (auto's route before the wide kernel) {fused_ms:.2f} ms "
+              f"({events / fused_ms * 1e3:.1f} events/s); wide is "
+              f"{fused_ms / times['bf16']:.2f}x faster [{card}]", flush=True)
+        result[batch] = dict(times, plain_ms=plain_ms, fused_ms=fused_ms, clock_ms=clock_ms)
+
+    model, _ = build_model(False, device)
+    packed = dw.pack_weights_wide(model.state_dict(), model.config, torch.bfloat16)
+    prompts = np.tile(path["prompt"], (8, 1))
+    state = dw.init_kv_state(model.config, 8, 1024, torch.bfloat16, device=device)
+    default_ms = cuda_ms(lambda: wide_run(packed, model.config, prompts,
+                                          np.full(8, PROMPT_EVENTS, np.int32), sampled,
+                                          length=GENERATE_EVENTS, cache_len=1024,
+                                          state=state), 2)
+    print(f"default model B=8 x {GENERATE_EVENTS} bf16 (finding, not a route): wide kernel "
+          f"{default_ms:.2f} ms against decode_generate {default_fused_ms:.2f} ms [{card}]",
+          flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
+    from composer_tpu_torch.config import get_default
     from composer_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
@@ -1398,7 +1813,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     start = time.perf_counter()
-    libraries = ("decode_generate", "flash_attention", "spec_decode", "decode_segment")
+    libraries = ("decode_generate", "flash_attention", "spec_decode", "decode_segment",
+                 "decode_wide")
     _build.build_all(libraries)
     for name in libraries:
         _build.load_library(name)
@@ -1417,6 +1833,10 @@ def main() -> int:
     segment_error = segment_vs_plain(device)
     segment = segment_timings(device, card)
     serve = serve_path(device, card)
+    flagship = build_flagship(device)
+    wide_error = wide_vs_plain(device, flagship)
+    wide_path = flagship_path(device, card, flagship, get_default())
+    wide = wide_timings(device, card, flagship, wide_path, times["batched"][0])
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -1453,6 +1873,12 @@ def main() -> int:
         "launches": serve["launches"], "max_abs_err": segment_error, "ms": segment["ms"],
         "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
         "bound_by": segment["bound_by"], "library_ms": None})
+    wide_bound_ms, wide_bound_by = wide[8]["bound bf16"]
+    kernels.append({
+        "name": "decode_wide", "route": "cuda", "source": "composer_tpu_torch/csrc/decode_wide.cu",
+        "replaces": "composer_tpu/ops/decode_kernel_wide.py:153", "launches": wide_path["launches"],
+        "max_abs_err": wide_error, "ms": wide[8]["bf16"], "plain_ms": wide[8]["plain_ms"],
+        "bound_ms": wide_bound_ms, "bound_by": wide_bound_by, "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

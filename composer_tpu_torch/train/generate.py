@@ -1,6 +1,6 @@
 """Autoregressive generation: port of ``composer_tpu/train/generate.py``.
 
-Three engines, as in the JAX package:
+Four engines, as in the JAX package:
 
 * the speculative kernel (``_spec_generate``): at batch 1, one launch of the
   Hopper kernel ``spec_decode`` drafts tokens by n-gram lookup and verifies
@@ -10,18 +10,23 @@ Three engines, as in the JAX package:
   prompts whose common prefix is at least ``COMPOSER_PREFILL_MIN`` tokens
   (default 64) first run one batched prefill forward and hand its cache to
   the kernel;
+* the wide kernel (``WideTransformerDecoder``): for weights that outgrow the
+  card's fast memory, one launch of the Hopper kernel ``decode_wide`` per
+  sub-batch of up to 8 rows reads each weight once per step for all rows,
+  spread over every SM (``ops/decode_kernel_wide.py``); no prefill;
 * the unfused path (``engine="xla"``, the JAX package's name for it): a
   prefill forward, then one cached forward and one sampling call per token.
 
-Routing (``generate_ids``), with the JAX package's gates: ``auto`` sends a
-batch-1 greedy request (every temperature <= 0) on a CUDA device to the
-speculative kernel, every other transformer with layer norm on a CUDA device
-to the fused kernel, and everything on the CPU to the unfused path.
-``spec`` opts a batch-1 request into the speculative engine, sampled ones
-included (its plain version on the CPU); at batch > 1 it takes the unfused
-path. ``megakernel`` runs the fused kernel on CUDA and its plain PyTorch
-version on the CPU. ``xla`` runs the unfused path. The JAX package's
-``wide`` engine is not ported yet.
+Routing (``generate_ids``), with the JAX package's gates: ``auto`` on a
+CUDA device sends a transformer with layer norm whose packed weights
+(``_packed_weight_bytes``) exceed the card's L2 to the wide kernel, and
+otherwise a batch-1 greedy request (every temperature <= 0) to the
+speculative kernel and every other request to the fused kernel; everything
+on the CPU takes the unfused path. ``spec`` opts a batch-1 request into the
+speculative engine, sampled ones included (its plain version on the CPU);
+at batch > 1 it takes the unfused path. ``megakernel`` and ``wide`` run
+their kernel on CUDA and its plain PyTorch version on the CPU. ``xla`` runs
+the unfused path.
 
 Positions past ``window_size`` clamp to the last learned position embedding.
 """
@@ -37,6 +42,7 @@ import torch
 from composer_tpu_torch.models import ModelType
 from composer_tpu_torch.models.transformer import init_cache
 from composer_tpu_torch.ops import decode_kernel as dk
+from composer_tpu_torch.ops import decode_kernel_wide as dkw
 from composer_tpu_torch.ops.decode_kernel_batched import kernel_fits, megakernel_generate_batched
 from composer_tpu_torch.ops.decode_kernel_spec import (
     default_block,
@@ -251,6 +257,83 @@ class TransformerDecoder:
         )
 
 
+class WideTransformerDecoder:
+    """The wide-kernel engine: packs the weights once (bf16 on CUDA, float32
+    on the CPU); each ``generate`` runs one ``decode_wide`` launch per
+    sub-batch of ``_wide_batch_cap`` rows on a carried K/V state.
+
+    ``COMPOSER_WIDE_INT8=1`` packs the streamed matmul weights int8 with
+    per-output-channel scales; ``COMPOSER_WIDE_INT8_KV=1`` keeps the K/V
+    prefix int8 (bit-identical to float K/V before position 128). Both are
+    read at construction. Sub-batch ``i > 0`` samples with seed
+    ``(seed * 65537 + 2**16 + i) % 2**31``, as in the JAX package.
+    """
+
+    def __init__(self, model, params=None, dtype=None):
+        self.model = model
+        self.config = model.config
+        self.params = params
+        self.device = _device(model, params)
+        self.weights_key = _weights_key(model, params)
+        if dtype is None:
+            if os.environ.get("COMPOSER_WIDE_INT8", "0") == "1":
+                dtype = torch.int8
+            else:
+                dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        state = params if params is not None else model.state_dict()
+        self.packed = dkw.pack_weights_wide(state, model.config, dtype=dtype, device=self.device)
+        self.kv_quant = os.environ.get("COMPOSER_WIDE_INT8_KV", "0") == "1"
+        self._kv = {}  # (batch, cache_len) -> the carried K/V state
+
+    def _kv_state(self, batch: int, cache_len: int):
+        key = (batch, cache_len)
+        if key not in self._kv:
+            # One state per dispatch shape, reused across calls: every row a
+            # call reads, it wrote first. At the flagship's widths a state is
+            # hundreds of MB, so only one shape stays alive.
+            self._kv.clear()
+            self._kv[key] = dkw.init_kv_state(self.config, batch, cache_len,
+                                              self.packed["wte"].dtype, self.kv_quant,
+                                              self.device)
+        return self._kv[key]
+
+    def generate(self, prompt, length, temperature=1.0, seed=0, cache_len=None,
+                 top_k=0, top_p=0.0, prompt_lengths=None):
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        if cache_len is None:
+            cache_len = prompt.shape[1] + length
+        cache_len = _padded_cache_len(cache_len)
+        temps, topks, topps = _normalize_sampling(prompt.shape[0], temperature, top_k, top_p)
+        if prompt_lengths is None:
+            plens = np.full(prompt.shape[0], prompt.shape[1], np.int32)
+        else:
+            plens = np.asarray(prompt_lengths, np.int32).reshape(-1)
+        chunk = _wide_batch_cap(self.config, cache_len)
+        if chunk == 0:
+            raise ValueError(
+                f"model (embed {self.config.embed_dim}) at cache_len {cache_len} exceeds "
+                "the wide kernel's limits; use the xla engine")
+        chunk = min(chunk, prompt.shape[0])
+        outputs = []
+        for index, start in enumerate(range(0, prompt.shape[0], chunk)):
+            rows = prompt[start:start + chunk]
+            if rows.shape[0] < chunk:  # pad the last sub-batch to the shape
+                rows = np.concatenate([rows, np.tile(rows[-1:], (chunk - rows.shape[0], 1))])
+            tc, kc, pc, lc = (np.resize(v[start:start + chunk], chunk)
+                              for v in (temps, topks, topps, plens))
+            chunk_seed = seed if index == 0 else (seed * 65537 + 2**16 + index) % (2**31)
+            greedy, use_k, use_p = dk.sampling_flags(tc, kc, pc)
+            tokens, _ = dkw.megakernel_generate_wide(
+                self.packed, self._kv_state(chunk, cache_len), rows, chunk_seed, tc,
+                config=self.config, length=length, cache_len=cache_len, top_k=kc, top_p=pc,
+                greedy=greedy, use_k=use_k, use_p=use_p,
+                prompt_lengths=lc if bool((lc != rows.shape[1]).any()) else None)
+            outputs.append(tokens[:min(chunk, prompt.shape[0] - start)])
+        return torch.cat(outputs, dim=0)
+
+
 def _weights_key(model, params) -> tuple:
     """Storage and version counter of every weight tensor: any in-place
     update (``load_state_dict``, an optimizer step, ``reset_parameters``) or
@@ -260,6 +343,7 @@ def _weights_key(model, params) -> tuple:
 
 
 _ENGINE_CACHE: dict = {}
+_WIDE_ENGINE_CACHE: dict = {}
 
 # Stats vector of the most recent speculative generate: [total_blocks,
 # generation_blocks, final_position, 0...]; the realized acceptance is
@@ -298,6 +382,80 @@ def _spec_generate(model, params, prompt, length: int, temps, seed: int, cache_l
     return tokens[None]
 
 
+def _wide_generate(model, params, prompt, length: int, temps, seed: int, cache_len: int,
+                   top_k=0, top_p=0.0, prompt_lengths=None):
+    """One packed wide engine kept alive, keyed like ``_packed_engine`` and on
+    the two int8 flags, which the engine reads at construction."""
+    flags = (os.environ.get("COMPOSER_WIDE_INT8", "0"),
+             os.environ.get("COMPOSER_WIDE_INT8_KV", "0"))
+    engine = _WIDE_ENGINE_CACHE.get("engine")
+    if (engine is None or engine.model is not model or engine.params is not params
+            or engine.weights_key != _weights_key(model, params)
+            or _WIDE_ENGINE_CACHE.get("flags") != flags):
+        _WIDE_ENGINE_CACHE.clear()  # drop the old engine's weights and state first
+        engine = WideTransformerDecoder(model, params)
+        _WIDE_ENGINE_CACHE.update(engine=engine, flags=flags)
+    return engine.generate(prompt, length, temperature=temps, seed=seed, cache_len=cache_len,
+                           top_k=top_k, top_p=top_p, prompt_lengths=prompt_lengths)
+
+
+def _packed_weight_bytes(config) -> int:
+    """Bytes of the resident kernels' packed weights, as the JAX package
+    counts them: per layer the bf16 matmuls (12 E^2) and the float32 biases
+    and LayerNorms, plus the embedding tables (about 12.6 MB for the default
+    model, about 200 MB at embed 1024)."""
+    e = config.embed_dim
+    per_layer = 12 * e * e * 2  # bf16 matmuls
+    per_layer += (3 * e + e + 4 * e + e) * 4  # f32 biases
+    per_layer += 4 * e * 4  # ln_1/ln_2 scale+bias, f32
+    tables = 2 * dk.vocab_pad(config) * e * 2  # wte packed both directions, bf16
+    tables += config.window_size * e * 2  # wpe, bf16
+    tables += 2 * e * 4  # ln_f, f32
+    return config.num_layers * per_layer + tables
+
+
+# The L2 of the Hopper cards the kernels are built for (sm_90a: H100, H200).
+HOPPER_L2_BYTES = 50 * 2**20
+
+
+def _fast_memory_bytes(device) -> int:
+    """The card's L2, where the fused kernel's blocks find the weights they
+    re-read at every step. Where PyTorch has no CUDA runtime (a CUDA device
+    named in a routing decision on a CPU-only build), the Hopper value."""
+    if not torch.cuda.is_available():
+        return HOPPER_L2_BYTES
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def _weights_outgrow_fast_memory(model, device) -> bool:
+    return (device.type == "cuda"
+            and _packed_weight_bytes(model.config) > _fast_memory_bytes(device))
+
+
+def _wide_batch_cap(config, cache_len: int) -> int:
+    """Largest sub-batch, up to 8, that the wide kernel's limits admit at
+    ``cache_len`` (``wide_kernel_fits``: shared memory and widths); 0 where
+    none does."""
+    for candidate in range(dkw.MAX_BATCH, 0, -1):
+        if dkw.wide_kernel_fits(config, candidate, cache_len):
+            return candidate
+    return 0
+
+
+def _use_wide_kernel(model, model_type, cache_len: int, engine: str, device) -> bool:
+    """``wide`` forces the wide engine (its plain version on the CPU);
+    ``auto`` takes it on a CUDA device only where the fused kernel's weights
+    would not stay in fast memory, the JAX package's rule with the L2 for
+    VMEM."""
+    if engine not in ("auto", "wide"):
+        return False
+    if model_type != ModelType.TRANSFORMER or not model.config.use_layer_norm:
+        return False
+    if _wide_batch_cap(model.config, _padded_cache_len(cache_len)) == 0:
+        return False
+    return engine == "wide" or _weights_outgrow_fast_memory(model, device)
+
+
 def _use_spec_kernel(model, model_type, batch: int, cache_len: int, engine: str, device,
                      temps=None) -> bool:
     """The JAX package's gate for the speculative engine: batch 1 only, a
@@ -308,7 +466,8 @@ def _use_spec_kernel(model, model_type, batch: int, cache_len: int, engine: str,
     never to run slower than the sequential kernel for any content."""
     greedy = temps is not None and bool(np.all(np.asarray(temps) <= 0))
     if engine == "auto":
-        if device.type != "cuda" or not greedy:
+        # Resident-weight models only, as in the JAX package.
+        if device.type != "cuda" or not greedy or _weights_outgrow_fast_memory(model, device):
             return False
     elif engine != "spec":
         return False
@@ -320,15 +479,11 @@ def _use_spec_kernel(model, model_type, batch: int, cache_len: int, engine: str,
 
 
 def _use_kernel(model, model_type, cache_len: int, engine: str, device) -> bool:
-    if engine == "wide":
-        raise NotImplementedError(
-            "engine='wide' is not ported yet (ROADMAP.md, Queue 2 items 7 and 8)."
-        )
-    if engine not in ("auto", "megakernel", "xla", "spec"):
+    if engine not in ("auto", "megakernel", "wide", "xla", "spec"):
         raise ValueError(f"unknown engine {engine!r}")
     # A spec request the speculative engine did not take (batch > 1) goes
     # to the unfused path, as in the JAX package.
-    if engine in ("xla", "spec") or model_type != ModelType.TRANSFORMER:
+    if engine in ("xla", "spec", "wide") or model_type != ModelType.TRANSFORMER:
         return False
     if not model.config.use_layer_norm:
         # The kernel hard-codes the pre-LN block; norm-free models stay unfused.
@@ -354,8 +509,8 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
     a common width; row s's generated ids are still columns
     ``[prompt_len, prompt_len + length)``. ``temperature``/``top_k``/
     ``top_p`` are scalars or per-row vectors; a row with temperature <= 0
-    decodes greedily. ``engine``: ``auto``, ``spec``, ``megakernel`` or
-    ``xla`` (see the module docstring). After a speculative run,
+    decodes greedily. ``engine``: ``auto``, ``spec``, ``megakernel``,
+    ``wide`` or ``xla`` (see the module docstring). After a speculative run,
     ``LAST_SPEC_STATS`` holds its stats and ``SPEC_DISPATCHES`` has risen.
     """
     if isinstance(prompt_ids, torch.Tensor):
@@ -387,6 +542,10 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
         prompt = prompt_host if plens is None else prompt_host[:, :int(plens[0])]
         generated = _spec_generate(model, params_or_variables, prompt, length, temps, seed,
                                    cache_len, top_k=topks, top_p=topps)
+    elif _use_wide_kernel(model, model_type, cache_len, engine, device):
+        generated = _wide_generate(model, params_or_variables, prompt_host, length, temps,
+                                   seed, cache_len, top_k=topks, top_p=topps,
+                                   prompt_lengths=plens)
     elif _use_kernel(model, model_type, cache_len, engine, device):
         generated = _packed_engine(model, params_or_variables).generate(
             prompt_host, length, temperature=temps, seed=seed,

@@ -1,6 +1,8 @@
 """The port's ``generate_ids`` and ``TransformerDecoder`` against the JAX
 package's ``generate_ids`` (f32 greedy ids must be equal, CPU)."""
 
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -140,8 +142,32 @@ def test_routing(setup, monkeypatch):
     assert not gen._use_kernel(model, ModelType.TRANSFORMER, 1024, "xla", device)
     # The kernel's one limit: the scores of a 40k-slot cache exceed shared memory.
     assert not gen._use_kernel(model, ModelType.TRANSFORMER, 40_000, "auto", device)
-    with pytest.raises(NotImplementedError, match="Queue 2 items 7 and 8"):
-        gen.generate_ids(model, ModelType.TRANSFORMER, None, PROMPTS, length=3, engine="wide")
+    # auto sends weights beyond the card's L2 (the Hopper value without a
+    # CUDA runtime) to the wide kernel: the embed-1024 flagship (about 200 MB
+    # packed) but not the default model (about 12.6 MB); on the CPU auto
+    # stays unfused.
+    if not torch.cuda.is_available():
+        assert gen._fast_memory_bytes(device) == 50 * 2**20
+    flagship = SimpleNamespace(config=TransformerConfig(
+        vocab_size=390, embed_dim=1024, window_size=2048, num_layers=8, num_heads=16,
+        use_relative_attention=True))
+    default = SimpleNamespace(config=TransformerConfig(vocab_size=390))
+    for routed, wide, kernel in ((flagship, True, False), (default, False, True)):
+        assert gen._use_wide_kernel(routed, ModelType.TRANSFORMER, 1024, "auto",
+                                    device) is wide
+        assert gen._use_wide_kernel(routed, ModelType.TRANSFORMER, 1024, "wide", device)
+        assert not gen._use_wide_kernel(routed, ModelType.TRANSFORMER, 1024, "megakernel",
+                                        device)
+        assert gen._use_spec_kernel(routed, ModelType.TRANSFORMER, 1, 1024, "auto", device,
+                                    np.zeros(1)) is kernel
+    assert not gen._use_wide_kernel(flagship, ModelType.TRANSFORMER, 1024, "auto",
+                                    torch.device("cpu"))
+    wide_calls = []
+    monkeypatch.setattr(gen.WideTransformerDecoder, "generate",
+                        lambda self, prompt, length, **kw: wide_calls.append(prompt.shape)
+                        or torch.zeros((prompt.shape[0], length), dtype=torch.int32))
+    gen.generate_ids(model, ModelType.TRANSFORMER, None, PROMPTS, length=3, engine="wide")
+    assert wide_calls == [(2, 5)] and calls == [(1, 5)]
     # spec at batch 2 takes the unfused path, as the JAX gates send it.
     gen.generate_ids(model, ModelType.TRANSFORMER, None, PROMPTS, length=3, engine="spec")
     assert calls == [(1, 5)]
