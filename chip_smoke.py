@@ -113,6 +113,29 @@ Phases (any failure exits non-zero):
    route ``auto`` took before the wide kernel); then the default model's
    wide time beside ``decode_generate``'s.
 
+9. The streamed-weight segment kernel ``decode_wide_segment``
+   (csrc/decode_wide_segment.cu) and ``ContinuousGenerationService``'s wide
+   engine. (a) Kernel against plain version in float32, at the default
+   widths (relative attention off and on) and the flagship's: 8 slots,
+   ragged prompts, one parked throughout and two arriving mid-run, 150
+   steps at cache 256 cut into segments of 1, 7 and 64, greedy and sampled
+   with per-row top-k / top-p: ids and carry identical, hence identical
+   across the cuts; at the default widths they also equal
+   ``decode_segment``'s, and greedy ids equal one ``decode_wide`` launch
+   (each row from its own position 0). int8 weights on the flagship pass
+   the bf16 rule teacher-forced (``wide_teacher_forced_gap``). (b) bf16 on
+   the flagship, 8 x (10 + 1014) in 16 segments of 64 at cache 2048: ms per
+   segment (CUDA events around each launch) against the plain version,
+   ``wide_segment_bound`` and one ``decode_wide`` launch for the same
+   generation, with the greedy ids' agreement. (c)
+   ``ContinuousGenerationService(engine="auto")`` on the flagship with the
+   `serve` defaults must take the wide engine: a 16-request burst (8
+   greedy, 8 sampled), the wide segment kernel's launch count rising and
+   ``decode_segment``'s not, every token checked by ``sampled_token_gap``
+   teacher-forced through the plain bf16 forward; events/s, latency p50 /
+   p95 and the busy share are printed, and two segments of the resident
+   route ``auto`` took before are timed on the same weights.
+
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
 H100 SXM's published peaks), then, as the last line,
@@ -1412,6 +1435,9 @@ def serve_path(device, card: str) -> dict:
 FLAGSHIP = dict(vocab_size=390, embed_dim=1024, window_size=2048, num_layers=8, num_heads=16,
                 use_relative_attention=True)  # docs/validation.md:148-170
 WIDE_CHECK_CACHE = 256  # 150 steps: past the int8 K/V window at 128
+# decode_wide's bf16 flagship times by batch before its helpers moved to the
+# shared header, printed beside this run's for comparison.
+WIDE_BF16_EARLIER_MS = {8: 671.77, 1: 304.89}
 WIDE_SAMPLED = (np.array([1.0, 0.8, 0.0, 1.2, 1.0, 0.7, 1.0, 1.0], np.float32),
                 np.array([0, 20, 0, 5, 0, 40, 0, 3]),
                 np.array([0.9, 0.0, 0.0, 0.8, 0.0, 0.95, 0.0, 0.0], np.float32))
@@ -1749,9 +1775,12 @@ def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: floa
                                                    state=state), 2)
             kv_bytes = 1 if quantize_kv else 2
             ms, by = wide_bound(packed, config, batch, num_steps, kv_bytes)
+            earlier = (f" (the kernel before its helpers moved to csrc/decode_wide_common.cuh: "
+                       f"{WIDE_BF16_EARLIER_MS[batch]} ms on an NVIDIA H100 80GB HBM3 at 700 W)"
+                       if name == "bf16" else "")
             print(f"flagship wide kernel {name} B={batch} x {GENERATE_EVENTS}: "
                   f"{times[name]:.2f} ms ({events / times[name] * 1e3:.1f} events/s); bound "
-                  f"{ms:.2f} ms ({by}) [{card}]", flush=True)
+                  f"{ms:.2f} ms ({by}){earlier} [{card}]", flush=True)
             times[f"bound {name}"] = (ms, by)
         # Where the time goes: the kernel's clock (block 0, from one grid
         # barrier to the next) by phase, one more bf16 run.
@@ -1799,6 +1828,329 @@ def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: floa
     return result
 
 
+WIDE_SEGMENT_STARTS = np.array([0, 0, 0, 0, 3, 0, 2**30, 40], np.int32)  # 6 parked, 4 and 7 late
+
+
+def wide_segment_stream(packed, config, prompts, plens, starts, boundaries, sampling, *,
+                        cache_len, plain=False, live=None, seed=3):
+    """One run of ``decode_segment_wide`` (or its plain version) over the
+    segments ``boundaries`` on fresh state: ``(stream (B, steps), carry)`` on
+    the host. ``live=None`` grows it as the service does."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_wide_segmented as dws
+
+    device = packed["wte"].device
+    rows = dk.row_params(len(prompts), packed["wte"].shape[0], *sampling,
+                         *dk.sampling_flags(*sampling), device)
+    host = [torch.as_tensor(t, dtype=torch.int32, device=device) for t in (prompts, plens, starts)]
+    kv, carry = dws.init_wide_segment_state(packed, config, len(prompts), cache_len)
+    active = starts != dws.PARKED
+    chunks = []
+    for b0, b1 in zip(boundaries[:-1], boundaries[1:]):
+        reach = int((b1 - starts[active]).max())
+        kwargs = dict(config=config, steps=b1 - b0, cache_len=cache_len,
+                      live=live or min(cache_len, -(-reach // 256) * 256))
+        if plain:
+            tokens = dws.decode_segment_wide_reference(packed, kv, carry, *host, b0, seed, *rows,
+                                                       **kwargs)
+        else:
+            tokens, kv, carry = dws.decode_segment_wide(packed, kv, carry, prompts, plens, starts,
+                                                        b0, seed, *sampling, **kwargs)
+        chunks.append(tokens)
+    torch.cuda.synchronize()
+    return torch.cat(chunks, dim=1).cpu(), carry.cpu()
+
+
+def wide_segment_vs_plain(device, flagship) -> int:
+    """Phase 9a; returns the largest |kernel - plain| over ids and carry."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_segmented as seg
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+
+    worst = 0
+    greedy = (0.0, 0, 0.0)
+    rng = np.random.default_rng(17)
+    prompts = rng.integers(0, 390, (8, 10)).astype(np.int32)
+    plens = np.array([10, 4, 7, 1, 10, 6, 9, 2], np.int32)
+    starts = WIDE_SEGMENT_STARTS
+    steps = WIDE_CHECK_CACHE - 106  # 150 steps at cache 256: up to 3 key splits a row
+    cuts = {length: list(range(0, steps, length)) + [steps] for length in (1, 7, 64)}
+    models = [(f"default rel={rel}", build_model(rel, device)[0]) for rel in (False, True)]
+    for name, model in models + [("flagship", flagship)]:
+        config = model.config
+        packed = dw.pack_weights_wide(model.state_dict(), config, dtype=torch.float32)
+        for kind, sampling in (("greedy", greedy), ("sampled", WIDE_SAMPLED)):
+            args = (packed, config, prompts, plens, starts)
+            plain = wide_segment_stream(*args, cuts[64], sampling, cache_len=WIDE_CHECK_CACHE,
+                                        live=WIDE_CHECK_CACHE, plain=True)
+            for length, boundaries in cuts.items():
+                ours = wide_segment_stream(*args, boundaries, sampling,
+                                           cache_len=WIDE_CHECK_CACHE, live=WIDE_CHECK_CACHE)
+                diff = max(int((a.long() - b.long()).abs().max()) for a, b in zip(ours, plain))
+                worst = max(worst, diff)
+                if diff:
+                    raise AssertionError(f"wide segment {name} {kind} segments of {length}: "
+                                         "kernel and plain version disagree")
+            stream = ours[0]
+            if (stream[6] != -1).any() or (stream[7, :40] != -1).any() \
+                    or (stream[4, :3] != -1).any():
+                raise AssertionError("a parked slot emitted a token")
+            print(f"wide segment f32 {name} {kind}: ids and carry identical to the plain version "
+                  f"under segments of 1, 7 and 64 (8 slots, one parked, two late, {steps} steps, "
+                  f"cache {WIDE_CHECK_CACHE}), {len(set(plain[0].flatten().tolist()))} distinct "
+                  "ids", flush=True)
+            if name.startswith("default"):
+                resident = dk.pack_weights(model.state_dict(), config, dtype=torch.float32,
+                                           device=device)
+                theirs = segment_stream(resident, config, prompts, plens, starts, cuts[64],
+                                        sampling, cache_len=WIDE_CHECK_CACHE,
+                                        live=WIDE_CHECK_CACHE)
+                if not all(torch.equal(a, b) for a, b in zip(theirs, plain)):
+                    raise AssertionError(f"wide segment {name} {kind}: differs from "
+                                         "decode_segment")
+            if kind == "greedy":
+                whole, _, _ = wide_run(packed, config, prompts, plens, greedy,
+                                       length=steps - 9, cache_len=WIDE_CHECK_CACHE)
+                for row in np.flatnonzero(starts != 2**30):
+                    first = int(starts[row]) + int(plens[row]) - 1
+                    count = steps - first
+                    if not torch.equal(stream[row, first:], whole[row, :count]):
+                        raise AssertionError(f"wide segment {name} greedy row {row}: differs "
+                                             "from decode_wide")
+        print(f"wide segment f32 {name}: greedy ids equal one decode_wide launch (each row from "
+              f"its own position 0){'; greedy and sampled ids and carry equal decode_segment' if name.startswith('default') else ''}",
+              flush=True)
+    del packed
+    config = flagship.config
+    int8 = dw.pack_weights_wide(flagship.state_dict(), config, dtype=torch.int8)
+    zero = np.zeros(8, np.int32)
+    ours, _ = wide_segment_stream(int8, config, prompts, plens, zero, cuts[64], WIDE_SAMPLED,
+                                  cache_len=WIDE_CHECK_CACHE, live=WIDE_CHECK_CACHE)
+    ids = torch.zeros((8, steps), dtype=torch.int32)  # decode_wide's column layout
+    for row, plen in enumerate(plens):
+        ids[row, :steps - plen + 1] = ours[row, plen - 1:]
+    gap = wide_teacher_forced_gap(int8, config, prompts, plens, WIDE_SAMPLED, ids,
+                                  cache_len=WIDE_CHECK_CACHE)
+    print(f"wide segment flagship int8 weights sampled: every token, teacher-forced through the "
+          f"plain version, within {gap:.3e} of scale (limit {BF16_LOGIT_REL_TOL})", flush=True)
+    return worst
+
+
+def wide_segment_bound(packed, config, starts, step0: int, steps: int, live: int):
+    """One segment of the wide segment kernel: per step the streamed weights
+    once (they exceed the card's on-chip memory, ``wide_bound``), the other
+    tables, prompts, per-row inputs and ids once; per step and active row
+    and layer its K/V row written and its prefix [0, min(pos, live-1)] read,
+    and the relative-table rows the active rows' bands reach, once a step.
+    The operations are ``segment_bound``'s."""
+    E, L, W = config.embed_dim, config.num_layers, config.window_size
+    size = {name: t.numel() * t.element_size() for name, t in packed.items()}
+    streamed = sum(size.get(name, 0) for name in ("big_w", "fp_w", "wscale", "fpscale",
+                                                  "logits_w"))
+    once = sum(size.values()) - streamed - size["rel_rows"]
+    kv_row = 2 * E * packed["wte"].element_size()
+    per_key = 6 if config.use_relative_attention else 4
+    byte_count, flops = once + len(starts) * (PROMPT_EVENTS + steps + 8) * 4, 0
+    for i in range(step0, step0 + steps):
+        pos = i - starts[starts != 2**30].astype(np.int64)
+        pos = pos[pos >= 0]
+        if not len(pos):
+            continue
+        keys = np.minimum(pos, live - 1) + 1
+        byte_count += streamed + L * kv_row * int(keys.sum() + (pos < live).sum())
+        if config.use_relative_attention:
+            byte_count += L * min(int(keys.max()), W) * E * packed["rel_rows"].element_size()
+        flops += len(pos) * (L * 24 * E * E + 2 * E * config.vocab_size)
+        flops += L * per_key * E * int(keys.sum())
+    return bound(byte_count, flops)
+
+
+def wide_segment_timings(device, card: str, flagship) -> dict:
+    """Phase 9b: the kernel on the flagship in bf16 at the service's shape (8
+    rows x (10 + 1014) in 16 segments of 64, cache 2048, greedy), per
+    segment, against the plain version, the bound and one decode_wide
+    launch for the same generation (the cost of segmenting)."""
+    from composer_tpu_torch.ops import _build
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+
+    config = flagship.config
+    packed = dw.pack_weights_wide(flagship.state_dict(), config, dtype=torch.bfloat16)
+    prompts = np.random.default_rng(19).integers(0, 390, (8, PROMPT_EVENTS)).astype(np.int32)
+    plens = np.full(8, PROMPT_EVENTS, np.int32)
+    starts = np.zeros(8, np.int32)
+    greedy = (0.0, 0, 0.0)
+    boundaries = list(range(0, 16 * SEGMENT_STEPS + 1, SEGMENT_STEPS))
+    args = (packed, config, prompts, plens, starts, boundaries, greedy)
+    wide_segment_stream(*args, cache_len=SERVE_CACHE)  # warm-up
+    spans = KernelSpans(_build.load_library("decode_wide_segment"))
+    load_library = _build.load_library
+    _build.load_library = lambda name="decode_wide_segment": spans
+    try:
+        for _ in range(2):
+            ours, _ = wide_segment_stream(*args, cache_len=SERVE_CACHE)
+    finally:
+        _build.load_library = load_library
+    torch.cuda.synchronize()
+    per_segment = [begin.elapsed_time(end) for begin, end in spans.spans]
+    kernel_ms = float(np.mean(per_segment))
+    start = time.perf_counter()
+    plain, _ = wide_segment_stream(*args, cache_len=SERVE_CACHE, plain=True)
+    plain_ms = (time.perf_counter() - start) * 1e3 / 16
+    bounds = [wide_segment_bound(packed, config, starts, b0, SEGMENT_STEPS,
+                                 min(SERVE_CACHE, -(-(b0 + SEGMENT_STEPS) // 256) * 256))
+              for b0 in boundaries[:-1]]
+    bound_ms = float(np.mean([ms for ms, _ in bounds]))
+    bound_by = bounds[-1][1]
+    whole_args = (packed, config, prompts, plens, greedy)
+    whole_kwargs = dict(length=GENERATE_EVENTS, cache_len=SERVE_CACHE,
+                        state=dw.init_kv_state(config, 8, SERVE_CACHE, torch.bfloat16,
+                                               device=device))
+    whole, _, _ = wide_run(*whole_args, **whole_kwargs)
+    whole_ms = cuda_ms(lambda: wide_run(*whole_args, **whole_kwargs), 1)
+    generated = ours[:, PROMPT_EVENTS - 1:PROMPT_EVENTS - 1 + GENERATE_EVENTS]
+    agree = float((generated == whole[:, :GENERATE_EVENTS]).float().mean())
+    agree_plain = float((ours == plain).float().mean())
+    half = len(per_segment) // 2
+    print(f"wide segment kernel bf16, flagship, 8 live rows x {SEGMENT_STEPS} steps, cache "
+          f"{SERVE_CACHE}: {kernel_ms:.3f} ms per segment (mean of {len(per_segment)} over two "
+          f"runs; first segment {per_segment[half]:.3f} ms, last {per_segment[-1]:.3f} ms; "
+          f"{kernel_ms / SEGMENT_STEPS * 1e3:.1f} us per step); plain version {plain_ms:.2f} ms "
+          f"per segment (ids agreement {agree_plain:.4f}); bound {bound_ms:.4f} ms ({bound_by}) "
+          f"[{card}]", flush=True)
+    print(f"flagship 8 x {GENERATE_EVENTS} bf16 greedy: 16 segments {16 * kernel_ms:.2f} ms "
+          f"against one decode_wide launch {whole_ms:.2f} ms (cost of segmenting "
+          f"{16 * kernel_ms / whole_ms:.4f}x); ids agreement with decode_wide {agree:.4f} "
+          f"[{card}]", flush=True)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "whole_ms": whole_ms, "first_ms": per_segment[half:half + 2]}
+
+
+def wide_serve_path(device, card: str, flagship, first_ms) -> dict:
+    """Phase 9c: ``ContinuousGenerationService(engine="auto")`` on the
+    flagship with the `serve` defaults: ``auto`` must take the wide engine.
+    16 requests of 10 + 1014 events from 16 threads at once, 8 greedy and 8
+    sampled; then two segments of the resident route ``auto`` took before,
+    timed on the same weights."""
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.ops import _build
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_segmented as seg
+    from composer_tpu_torch.ops import decode_kernel_wide_segmented as dws
+    from composer_tpu_torch.ops.decode_kernel_spec import teacher_forced_logits
+    from composer_tpu_torch.serving import ContinuousGenerationService
+
+    config = flagship.config
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, 390, PROMPT_EVENTS).astype(np.int32) for _ in range(16)]
+    sampling = [(0.0, 0, 0.0)] * 8 + [(1.0, k, p) for k, p in (
+        (0, 0.0), (40, 0.0), (0, 0.9), (20, 0.95), (5, 0.0), (0, 0.8), (100, 0.9), (0, 0.0))]
+    service = ContinuousGenerationService(flagship, ModelType.TRANSFORMER, None, 390)
+    results, admitted = [None] * 16, {}
+    spans = KernelSpans(_build.load_library("decode_wide_segment"))
+    load_library = _build.load_library
+    try:
+        if not service.wide or (service.slots, service.seg_steps, service.cache_len,
+                                service.capacity) != (SERVE_SLOTS, SEGMENT_STEPS, SERVE_CACHE,
+                                                      SERVE_CACHE) \
+                or service.packed["big_w"].dtype != torch.bfloat16:
+            raise AssertionError("auto did not take the wide engine with the serve defaults")
+        service.submit(prompts[1], 64, temperature=0.0, deadline_ms=300_000)  # warm-up
+        admit = service._admit
+
+        def record(request, slot):
+            admit(request, slot)
+            admitted[request.prompt_ids.tobytes()] = (slot, int(service._starts[slot]))
+
+        service._admit = record
+        _build.load_library = lambda name="decode_wide_segment": spans
+        segments_before = len(service.batch_sizes)
+
+        def call(i):
+            temperature, top_k, top_p = sampling[i]
+            results[i] = service.submit(prompts[i], GENERATE_EVENTS, temperature=temperature,
+                                        top_k=top_k, top_p=top_p, deadline_ms=600_000)
+
+        threads = [threading.Thread(target=call, args=(i,), daemon=True) for i in range(16)]
+        dws.decode_segment_wide.launches = 0
+        seg.decode_segment.launches = 0
+        start = time.perf_counter()
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=600)
+        wall = time.perf_counter() - start
+        launches, resident_launches = dws.decode_segment_wide.launches, seg.decode_segment.launches
+        stats = service.overload_stats()
+        batch_sizes = service.batch_sizes[segments_before:]
+    finally:
+        _build.load_library = load_library
+        service.close()
+    busy_ms = spans.ms()
+    window_ms = spans.spans[0][0].elapsed_time(spans.spans[-1][1])
+    if any(r is None for r in results):
+        raise AssertionError("a request of the flagship burst did not complete")
+    print(f"flagship serve burst (auto -> wide): 16 x ({PROMPT_EVENTS} + {GENERATE_EVENTS}) from "
+          f"16 threads in {wall:.3f} s (host clock), {16 * GENERATE_EVENTS / wall:.1f} events/s; "
+          f"decode_segment_wide launches {launches}, decode_segment launches "
+          f"{resident_launches}; device busy share {busy_ms / window_ms:.5f} ({busy_ms:.2f} ms "
+          f"of a {window_ms:.2f} ms device window); latency p50 {stats['latency_p50_s']:.3f} s, "
+          f"p95 {stats['latency_p95_s']:.3f} s; active rows per segment {batch_sizes} [{card}]",
+          flush=True)
+    if launches < 1 or resident_launches:
+        raise AssertionError("the flagship service did not run on the wide segment kernel alone")
+
+    # Every token, teacher-forced through the plain bf16 forward (a sampled
+    # row adding the kernel's noise of its slot and global steps), must be
+    # one the kernel could have picked with every logit within 1% of scale.
+    resident = dk.pack_weights(flagship.state_dict(), config, dtype=torch.bfloat16,
+                               device=device)
+    worst = 0.0
+    for i, ids in enumerate(results):
+        if ids.shape != (PROMPT_EVENTS + GENERATE_EVENTS,) or ids.min() < 0 or ids.max() >= 390 \
+                or not np.array_equal(ids[:PROMPT_EVENTS], prompts[i]):
+            raise AssertionError(f"flagship request {i}: bad response {ids.shape}")
+        logits = teacher_forced_logits(resident, ids, config=config)[PROMPT_EVENTS - 1:-1]
+        temperature, top_k, top_p = sampling[i]
+        scaled, noise = logits, torch.zeros_like(logits)
+        if temperature > 0:
+            slot, start_step = admitted[prompts[i].tobytes()]
+            steps = start_step + PROMPT_EVENTS - 1 + np.arange(GENERATE_EVENTS)
+            scaled = logits / temperature
+            noise = gumbel_rows(service._seed, slot, steps, resident["wte"].shape[0], device)
+        scale = float(scaled[:, :390].abs().max())
+        tokens = torch.as_tensor(ids[PROMPT_EVENTS:], dtype=torch.long, device=device)
+        gap = sampled_token_gap(scaled[:, :390], noise[:, :390], tokens, top_k, top_p,
+                                BF16_LOGIT_REL_TOL * scale)
+        if not gap <= BF16_LOGIT_REL_TOL * scale:
+            raise AssertionError(f"flagship request {i}: a token scores {gap} below its row's "
+                                 f"max > {BF16_LOGIT_REL_TOL} x {scale}")
+        worst = max(worst, gap / scale)
+    print(f"flagship serve burst: every token of the 16 responses, teacher-forced through the "
+          f"plain bf16 forward, within {worst:.3e} of scale of the best lane surely kept (limit "
+          f"{BF16_LOGIT_REL_TOL})", flush=True)
+
+    # The finding behind the routing repair: the resident segment kernel, the
+    # route `auto` took before, on the same weights, two segments from step 0.
+    main = np.stack(prompts[:8])
+    plens, starts = np.full(8, PROMPT_EVENTS, np.int32), np.zeros(8, np.int32)
+    segment_stream(resident, config, main, plens, starts, [0, 4], (0.0, 0, 0.0),
+                   cache_len=SERVE_CACHE)  # warm-up
+    spans = KernelSpans(_build.load_library("decode_segment"))
+    _build.load_library = lambda name="decode_segment": spans
+    try:
+        segment_stream(resident, config, main, plens, starts, [0, 64, 128], (0.0, 0, 0.0),
+                       cache_len=SERVE_CACHE)
+    finally:
+        _build.load_library = load_library
+    torch.cuda.synchronize()
+    resident_ms = [begin.elapsed_time(end) for begin, end in spans.spans]
+    print(f"flagship, first two segments of 64 steps x 8 rows, bf16: resident decode_segment "
+          f"{resident_ms[0]:.2f} / {resident_ms[1]:.2f} ms against the wide segment kernel "
+          f"{first_ms[0]:.2f} / {first_ms[1]:.2f} ms ({resident_ms[0] / first_ms[0]:.2f}x / "
+          f"{resident_ms[1] / first_ms[1]:.2f}x) [{card}]", flush=True)
+    return {"launches": launches, "wall": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -1814,7 +2166,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     start = time.perf_counter()
     libraries = ("decode_generate", "flash_attention", "spec_decode", "decode_segment",
-                 "decode_wide")
+                 "decode_wide", "decode_wide_segment")
     _build.build_all(libraries)
     for name in libraries:
         _build.load_library(name)
@@ -1837,6 +2189,9 @@ def main() -> int:
     wide_error = wide_vs_plain(device, flagship)
     wide_path = flagship_path(device, card, flagship, get_default())
     wide = wide_timings(device, card, flagship, wide_path, times["batched"][0])
+    wide_segment_error = wide_segment_vs_plain(device, flagship)
+    wide_segment = wide_segment_timings(device, card, flagship)
+    wide_serve = wide_serve_path(device, card, flagship, wide_segment["first_ms"])
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -1879,6 +2234,14 @@ def main() -> int:
         "replaces": "composer_tpu/ops/decode_kernel_wide.py:153", "launches": wide_path["launches"],
         "max_abs_err": wide_error, "ms": wide[8]["bf16"], "plain_ms": wide[8]["plain_ms"],
         "bound_ms": wide_bound_ms, "bound_by": wide_bound_by, "library_ms": None})
+    kernels.append({
+        "name": "decode_segment_wide", "route": "cuda",
+        "source": "composer_tpu_torch/csrc/decode_wide_segment.cu",
+        "replaces": "composer_tpu/ops/decode_kernel_wide_segmented.py:151",
+        "launches": wide_serve["launches"], "max_abs_err": wide_segment_error,
+        "ms": wide_segment["ms"], "plain_ms": wide_segment["plain_ms"],
+        "bound_ms": wide_segment["bound_ms"], "bound_by": wide_segment["bound_by"],
+        "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

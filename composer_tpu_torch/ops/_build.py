@@ -97,6 +97,9 @@ ENTRY_POINTS = {
     "decode_wide": {
         "decode_wide": [_I32] * 4 + [_PTR] * 27 + [_I32] * 13 + [_U32, _F32, _F32, _PTR],
     },
+    "decode_wide_segment": {
+        "decode_wide_segment": [_I32] * 3 + [_PTR] * 25 + [_I32] * 14 + [_U32, _F32, _F32, _PTR],
+    },
     "spec_decode": {
         "spec_decode": [_I32, _I32] + [_PTR] * 18 + [_I32] * 11 + [_U32] + [_F32] * 5 + [_PTR],
     },

@@ -296,9 +296,8 @@ def _scratch_floats(batch: int, config) -> int:
             + batch * H * MAX_SPLITS * (D + 2) + batch)
 
 
-def _check_inputs(packed, kv_state, prompts, plens, temps, topk, topp, config, cache_len,
-                  num_steps, out_len, logits_out):
-    B = prompts.shape[0]
+def _check_packed(packed, config):
+    """Raises unless ``packed`` is a ``pack_weights_wide`` packing for ``config``."""
     L, E = config.num_layers, config.embed_dim
     act = packed["wte"].dtype
     wdtype = packed["big_w"].dtype
@@ -312,6 +311,30 @@ def _check_inputs(packed, kv_state, prompts, plens, temps, topk, topp, config, c
         raise ValueError("packed weights do not match the config")
     if config.use_relative_attention and packed["rel_rows"].shape[1] != config.window_size:
         raise ValueError("rel_rows must hold window_size rows with relative attention on")
+
+
+def _check_cuda_tensors(inputs, device, checked, int_names):
+    """Every tensor of ``inputs`` (None skipped) contiguous, 16-byte aligned
+    and on ``device``; those outside ``checked`` int32 when named in
+    ``int_names``, else float32."""
+    for name, t in inputs.items():
+        if t is None:
+            continue
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+            # The kernels read rows with 16-byte vector loads.
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {device}")
+        expected = torch.int32 if name in int_names else torch.float32
+        if name not in checked and t.dtype != expected:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {expected}")
+
+
+def _check_inputs(packed, kv_state, prompts, plens, temps, topk, topp, config, cache_len,
+                  num_steps, out_len, logits_out):
+    _check_packed(packed, config)
+    B = prompts.shape[0]
+    L, E = config.num_layers, config.embed_dim
+    act = packed["wte"].dtype
+    vpad = packed["wte"].shape[0]
     kv, kq, ks, tail = _split_state(kv_state)
     shape = (L, 2, B, cache_len, E)
     if kv is not None:
@@ -383,16 +406,8 @@ def decode_wide(packed, kv_state, prompts, plens, seed, temps, topk, topp, *, co
                   kq=kq, ks=ks, tail=tail, prompts=prompts, plens=plens, temps=temps,
                   topk=topk, topp=topp, tokens=tokens, logits_out=logits_out, scratch=scratch)
     # The weights' and caches' dtypes were checked by _check_inputs.
-    checked = ("big_w", "fp_w", "wte", "logits_w", "wpe", "rel_rows", "kv", "kq", "tail")
-    for name, t in inputs.items():
-        if t is None:
-            continue
-        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
-            # The kernel reads rows with 16-byte vector loads.
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {device}")
-        expected = torch.int32 if name in ("prompts", "plens", "tokens") else torch.float32
-        if name not in checked and t.dtype != expected:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {expected}")
+    _check_cuda_tensors(inputs, device, ("big_w", "fp_w", "wte", "logits_w", "wpe", "rel_rows",
+                                         "kv", "kq", "tail"), ("prompts", "plens", "tokens"))
 
     lib = load_library("decode_wide")
     ptr = ctypes.c_void_p

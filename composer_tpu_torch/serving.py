@@ -2,9 +2,12 @@
 (``ContinuousGenerationService`` and the overload controls it shares).
 
 A worker thread owns the device. The token loop runs in fixed-step
-segments of the Hopper kernel ``decode_segment``
-(``ops/decode_kernel_segmented.py``) with the KV cache kept on the card
-between segments; at every segment boundary finished rows are evicted
+segments of a Hopper kernel with the KV cache kept on the card between
+segments: ``decode_segment`` (``ops/decode_kernel_segmented.py``, one block
+per slot, weights read from the L2) or, for a model whose packed weights
+outgrow the L2, ``decode_segment_wide`` (``ops/decode_kernel_wide_segmented.py``,
+the weights streamed once per step for all slots). At every segment
+boundary finished rows are evicted
 (their waiters unblock at once) and queued requests are admitted into free
 slots, each with its own position clock. Two segments stay in flight: the
 worker launches segment k+1 before it reads segment k's tokens, so the
@@ -18,6 +21,7 @@ The HTTP layer (``GenerationService``, ``build_server``) is not ported yet
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -37,6 +41,8 @@ from composer_tpu_torch.models import ModelType
 from composer_tpu_torch.models.transformer import init_cache
 from composer_tpu_torch.ops import decode_kernel as dk
 from composer_tpu_torch.ops import decode_kernel_segmented as seg
+from composer_tpu_torch.ops import decode_kernel_wide_segmented as wseg
+from composer_tpu_torch.train.generate import _use_wide_kernel
 
 
 @dataclasses.dataclass
@@ -200,6 +206,17 @@ def _service_device(device) -> torch.device:
     return device
 
 
+def _service_engine(model, engine: str, cache_len: int, device) -> str:
+    """``resident`` or ``wide``: ``auto`` takes the wide engine exactly where
+    ``generate_ids`` would (``train/generate.py::_use_wide_kernel``: on a
+    CUDA device, a model whose packed weights outgrow the card's L2), the
+    JAX package's rule with the L2 for VMEM."""
+    if engine == "auto":
+        wide = _use_wide_kernel(model, ModelType.TRANSFORMER, cache_len, "auto", device)
+        return "wide" if wide else "resident"
+    return engine
+
+
 class ContinuousGenerationService(_OverloadControlMixin):
     """Continuous batching: requests join a running batch at segment
     boundaries instead of waiting for the current batch to finish.
@@ -215,9 +232,14 @@ class ContinuousGenerationService(_OverloadControlMixin):
     the kernel's plain version, sampled requests included, which draw the
     kernel's Philox bits); ``dtype`` defaults to bf16 on the card and f32 on
     the CPU; ``kv_vmem_mb`` is accepted and ignored: ``capacity`` is the
-    largest multiple of ``live_bucket`` up to ``cache_len`` whose scores fit
-    the kernel's shared memory (``segment_kernel_fits``); ``engine`` ``auto``
-    and ``resident`` run the segment kernel, ``wide`` is not ported.
+    largest multiple of ``live_bucket`` up to ``cache_len`` that the
+    kernel's shared memory admits (``segment_kernel_fits``, or
+    ``wide_segment_kernel_fits`` for the wide engine, which takes at most
+    ``MAX_BATCH`` slots). ``engine="resident"`` runs the segment kernel,
+    ``"wide"`` the streamed-weight segment kernel (``service.wide``; int8
+    weights with ``COMPOSER_WIDE_INT8=1``; no admission prefill and no
+    prefix cache, both of which write the resident layout, as in the JAX
+    package), and ``"auto"`` the wide one where ``generate_ids`` would.
 
     Samples are drawn from (service seed, slot, global step), so a row's
     stream does not depend on how the loop is segmented nor on when other
@@ -237,9 +259,6 @@ class ContinuousGenerationService(_OverloadControlMixin):
         if engine not in ("auto", "resident", "wide"):
             raise InvalidParameterError(
                 f"Continuous engine must be auto/resident/wide, got {engine!r}.")
-        if engine == "wide":
-            raise NotImplementedError(
-                "engine='wide' is not ported yet (ROADMAP.md, Queue 2 item 8).")
         self.device = _service_device(device)
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -267,24 +286,44 @@ class ContinuousGenerationService(_OverloadControlMixin):
         self.cache_len = max(-(-int(cache_len) // 128) * 128, 128)
         self.width = min(self.config.window_size, self.cache_len)
         self._seed = seed
+        self.wide = _service_engine(model, engine, self.cache_len, self.device) == "wide"
+        if self.wide and not 1 <= self.slots <= wseg.MAX_BATCH:
+            raise InvalidParameterError(
+                f"{self.slots} wide decode slots exceed the streamed-weight segment kernel's "
+                f"{wseg.MAX_BATCH} rows a launch; use fewer slots.")
         fitting = [live for live in range(self.live_bucket, self.cache_len + self.live_bucket,
                                           self.live_bucket)
-                   if seg.segment_kernel_fits(self.config, live)]
+                   if (wseg.wide_segment_kernel_fits(self.config, self.slots, live) if self.wide
+                       else seg.segment_kernel_fits(self.config, live))]
         self.capacity = min(self.cache_len, max(fitting, default=0))
         if self.capacity < min(self.width, 2 * self.live_bucket):
             raise InvalidParameterError(
                 f"embed {self.config.embed_dim} x {self.config.num_heads} heads exceeds the "
-                f"segment kernel's shared memory at a {self.capacity}-row capacity; use a "
-                "smaller cache_len.")
+                f"{'wide ' if self.wide else ''}segment kernel's shared memory at a "
+                f"{self.capacity}-row capacity; use a smaller cache_len.")
         if self.device.type == "cuda":
             # Build and load the kernel here, on the caller's thread, so that a
             # build failure raises from the constructor and not in a request.
             from composer_tpu_torch.ops._build import load_library
 
-            load_library("decode_segment")
-        self.packed = dk.pack_weights(self.params, self.config, dtype=dtype, device=self.device)
-        self._state = seg.init_segment_state(self.packed, self.config, self.slots,
-                                             self.cache_len)
+            load_library("decode_wide_segment" if self.wide else "decode_segment")
+        if self.wide:
+            if os.environ.get("COMPOSER_WIDE_INT8", "0") == "1":
+                dtype = torch.int8
+            self.packed = wseg.pack_weights_wide(self.params, self.config, dtype=dtype,
+                                                 device=self.device)
+            # Admission prefill and the prefix cache write the resident
+            # layout: the wide engine admits with teacher-forced prompt steps
+            # instead, as in the JAX package.
+            self.prefill_min = 0
+            self.prefix_cache_bytes = 0
+            self._state = wseg.init_wide_segment_state(self.packed, self.config, self.slots,
+                                                       self.cache_len)
+        else:
+            self.packed = dk.pack_weights(self.params, self.config, dtype=dtype,
+                                          device=self.device)
+            self._state = seg.init_segment_state(self.packed, self.config, self.slots,
+                                                 self.cache_len)
         self.max_batch_size = self.slots
         self._prompts = np.zeros((self.slots, self.width), np.int32)
         self._plens = np.ones(self.slots, np.int32)
@@ -472,13 +511,17 @@ class ContinuousGenerationService(_OverloadControlMixin):
         end = self._step + self.seg_steps
         live_needed = int((end - self._starts[active]).max()) if active.any() else 1
         live = min(self.capacity, -(-max(live_needed, 1) // self.live_bucket) * self.live_bucket)
-        kcache, vcache, carry = self._state
-        # decode_segment uploads fresh copies of the host arrays.
-        tokens, kcache, vcache, carry = seg.decode_segment(
-            self.packed, kcache, vcache, carry, self._prompts, self._plens, self._starts,
-            self._step, self._seed, self._temps, self._topks, self._topps,
-            config=self.config, steps=self.seg_steps, cache_len=self.cache_len, live=live)
-        self._state = (kcache, vcache, carry)
+        # Both kernels' wrappers upload fresh copies of the host arrays.
+        inputs = (self._prompts, self._plens, self._starts, self._step, self._seed,
+                  self._temps, self._topks, self._topps)
+        kwargs = dict(config=self.config, steps=self.seg_steps, cache_len=self.cache_len,
+                      live=live)
+        if self.wide:
+            tokens, *state = wseg.decode_segment_wide(self.packed, *self._state, *inputs,
+                                                      **kwargs)
+        else:
+            tokens, *state = seg.decode_segment(self.packed, *self._state, *inputs, **kwargs)
+        self._state = tuple(state)
         ready = None
         if tokens.is_cuda:
             # Copy the tokens out behind the kernel and mark the copy's end:

@@ -13,6 +13,7 @@ back with an ``Event`` where the JAX tests sleep.
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,9 @@ from composer_tpu_torch.models import ModelType
 from composer_tpu_torch.models.convert import params_from_flax
 from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
 from composer_tpu_torch.ops import decode_kernel_segmented as seg
-from composer_tpu_torch.serving import ContinuousGenerationService
+from composer_tpu_torch.ops import decode_kernel_wide_segmented as wseg
+from composer_tpu_torch.serving import ContinuousGenerationService, _service_engine
+from composer_tpu_torch.train import generate as gen
 
 VOCAB = 390
 WINDOW = 64
@@ -393,12 +396,13 @@ def test_surface_and_gauges(shared_service):
 
 
 def test_engines_and_devices():
-    """``wide`` is not ported and raises; the default device is the card,
-    which raises on a torch without CUDA; a capacity below two live buckets
-    is refused."""
+    """The wide engine takes at most the kernel's 8 slots; an unknown engine
+    is refused; the default device is the card, which raises on a torch
+    without CUDA; a capacity below two live buckets is refused."""
     model = _pair()[2]
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        ContinuousGenerationService(model, ModelType.TRANSFORMER, None, VOCAB, engine="wide")
+    with pytest.raises(InvalidParameterError, match="fewer slots"):
+        ContinuousGenerationService(model, ModelType.TRANSFORMER, None, VOCAB, engine="wide",
+                                    slots=wseg.MAX_BATCH + 1, device="cpu")
     with pytest.raises(InvalidParameterError):
         ContinuousGenerationService(model, ModelType.TRANSFORMER, None, VOCAB, engine="spec")
     if not torch.cuda.is_available():
@@ -408,3 +412,79 @@ def test_engines_and_devices():
                                          num_layers=1, window_size=1024), device="cpu")
     with pytest.raises(InvalidParameterError, match="shared memory"):
         ContinuousGenerationService(wide, ModelType.TRANSFORMER, None, VOCAB, device="cpu")
+
+
+def test_wide_engine_serves_and_matches_resident(make_service):
+    """``engine="wide"`` serves through the streamed-weight segment kernel's
+    plain version: concurrent greedy requests equal the resident engine's
+    and JAX's unfused path."""
+    prompts = [[5, 8, 11], [250, 3], [7, 7, 7, 7]]
+    results = {}
+    for engine in ("resident", "wide"):
+        service = make_service(engine=engine)
+        assert service.wide == (engine == "wide")
+        outs = [None] * len(prompts)
+
+        def call(i):
+            outs[i] = service.submit(prompts[i], length=6, temperature=0.0,
+                                     deadline_ms=WAIT * 1e3)
+
+        _join([_start(call, i) for i in range(len(prompts))])
+        results[engine] = outs
+    assert isinstance(service._state[0], torch.Tensor) and service._state[0].dim() == 5
+    for wide, resident, prompt in zip(results["wide"], results["resident"], prompts):
+        np.testing.assert_array_equal(wide, resident)
+        np.testing.assert_array_equal(wide, _xla([prompt], 6)[0])
+
+
+def test_wide_engine_streams_and_reports_health(make_service):
+    """The wide engine streams, and reports the admission prefill and the
+    prefix cache off: both write the resident layout, as in the JAX
+    package."""
+    service = make_service(engine="wide", prefill_min=2)
+    flat = [t for chunk in service.submit_stream([5, 8], length=5, temperature=0.0,
+                                                 deadline_ms=WAIT * 1e3) for t in chunk]
+    assert flat[:2] == [5, 8] and len(flat) == 7
+    np.testing.assert_array_equal(flat, _xla([[5, 8]], 5)[0])
+    assert service.overload_stats()["prefix_cache_entries"] == 0
+    assert service.prefill_min == 0 and service.prefix_cache_bytes == 0
+
+
+def test_wide_engine_packs_int8_weights(make_service, monkeypatch):
+    """``COMPOSER_WIDE_INT8=1`` packs int8 weights for the wide engine, as in
+    the JAX package, and its greedy ids equal ``generate_ids(engine="wide")``
+    under the same flag."""
+    monkeypatch.setenv("COMPOSER_WIDE_INT8", "1")
+    service = make_service(engine="wide")
+    assert service.packed["big_w"].dtype == torch.int8 and "wscale" in service.packed
+    prompt = [5, 100, 300, 17]
+    out = service.submit(prompt, length=8, temperature=0.0, deadline_ms=WAIT * 1e3)
+    expected = gen.generate_ids(_pair()[2], ModelType.TRANSFORMER, None, [prompt], length=8,
+                                temperature=0.0, cache_len=128, engine="wide")
+    np.testing.assert_array_equal(out, expected[0])
+
+
+def test_auto_engine_follows_generate_ids():
+    """``auto`` takes the wide engine exactly where ``generate_ids`` would: on
+    a CUDA device for a model whose packed weights outgrow the L2 (the
+    embed-1024 flagship, checked on its config without building it), never
+    on the CPU nor for a small model."""
+    small = _pair()[2]
+    flagship = SimpleNamespace(config=TransformerConfig(
+        vocab_size=VOCAB, embed_dim=1024, window_size=2048, num_layers=8, num_heads=16,
+        use_relative_attention=True))
+    default = SimpleNamespace(config=TransformerConfig(vocab_size=VOCAB))
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert gen._packed_weight_bytes(flagship.config) > gen.HOPPER_L2_BYTES
+    for model, device, engine in ((flagship, card, "wide"), (default, card, "resident"),
+                                  (small, card, "resident"), (flagship, cpu, "resident")):
+        assert _service_engine(model, "auto", 2048, device) == engine
+        assert gen._use_wide_kernel(model, ModelType.TRANSFORMER, 2048, "auto",
+                                    device) == (engine == "wide")
+    for explicit in ("resident", "wide"):
+        assert _service_engine(flagship, explicit, 2048, card) == explicit
+    service = _service(engine="auto")
+    try:
+        assert not service.wide
+    finally:
+        service.close()
