@@ -30,22 +30,42 @@ Phases (any failure exits non-zero):
    must give last-step logits within the bfloat16 rule.
 
 4. The flash attention kernels (csrc/flash_attention.cu) against their
-   plain PyTorch version at the training path's shapes (B=8, H=16, S=1024,
-   D=16, W=1024), relative attention off and on, dropout 0 and 0.1 with
-   the same seed (both draw the same Philox bits). float32 with TF32 off:
-   O and lse within 2e-4, dq/dk/dv/dE within 5e-4 of their scale (float32
-   atomics change the summation order). bfloat16: within 2% of scale.
+   plain PyTorch version, relative attention off and on, dropout 0 and 0.1
+   with the same seed (both draw the same Philox bits), on each route of
+   ``kernel_variant``: float32 at the training path's shapes (B=8, H=16,
+   S=1024, D=16, W=1024; the scalar kernels), with TF32 off, O and lse
+   within 2e-4, dq/dk/dv/dE within 5e-4 of their scale (float32 atomics
+   change the summation order); bfloat16 at the same shapes and at the
+   flagship's (B=8, H=16, S=2048, D=64, W=2048; the tensor-core kernels of
+   csrc/flash_attention_mma.cuh), lse within 1e-3 and O, dq/dk/dv/dE within
+   2% of their scale and, row by row, within 2% of each row's own norm
+   (floored at a tenth of the tensor's RMS row norm), so that an error
+   confined to far tiles, where typical values are small, still shows.
+   ``python3 chip_smoke.py --flash-planted-faults`` shows that rule
+   failing on faults planted in far tiles of copies of the kernels (a band
+   row shifted by one, two dropout words swapped).
 5. The training path, ``Trainer.train`` on a ``WindowDataset`` of event ids
    encoded by the MIDI codec: the default config with
    ``use_pallas_attention`` (bf16 compute, dropout 0.1), batch 8 x 1024,
    learning rate 1e-3, 20 steps, relative attention off and on. Forward
-   and backward launches must each equal 8 layers x 20 steps, the loss
-   must be finite and fall, and the checkpoint must restore in a fresh
-   ``Trainer`` whose model then generates 8 x 64 events through
-   ``generate_ids(engine="auto")``. Step time and train events/s are
-   printed. Then the flash kernels, their plain version and, as a
-   yardstick the port never calls, ``scaled_dot_product_attention`` are
-   timed with CUDA events at the same shapes.
+   and backward launches of the bf16 tensor-core kernels must each equal 8
+   layers x 20 steps, the loss must be finite and fall, and the checkpoint
+   must restore in a fresh ``Trainer`` whose model then generates 8 x 64
+   events through ``generate_ids(engine="auto")``. Step time, train
+   events/s and ``profile_steps``' flash and idle shares are printed. Then
+   3 float32 steps (mixed precision off, relative attention on) through the
+   scalar kernels: 8 x 3 launches each way, finite losses.
+5b. The flagship's training path: ``Trainer.train`` on the embed-1024
+   flagship (8 layers x 16 heads of 64, window 2048, relative attention)
+   with its flash recipe (``use_pallas_attention``, bf16 compute, dropout
+   0.1 / 0.1), batch 8 x 2048, lr 1e-3, 5 steps on codec-encoded event ids:
+   the tensor-core kernels at head_dim 64 must launch 8 x 5 times each way
+   and the losses be finite; step time, train events/s and the profile's
+   shares are printed. Then the flash kernels, their plain version and, as
+   a yardstick the port never calls, ``scaled_dot_product_attention`` are
+   timed with CUDA events on each route: bf16 at the training path's shapes
+   and at the flagship's (B=8, S=2048, D=64), float32 at the training
+   path's, each beside ``flash_bound``.
 6. The speculative kernel ``spec_decode`` (csrc/spec_decode.cu) against its
    plain PyTorch version in float32: identical tokens and stats, greedy and
    sampled, relative attention off and on, blocks 2, 3, 5 and 11 at 64
@@ -138,8 +158,15 @@ Phases (any failure exits non-zero):
 
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
-H100 SXM's published peaks), then, as the last line,
-``{"ok": true, "device": {...}}``.
+H100 SXM's published peaks; the flash pair once for each (dtype,
+head_dim) built, told apart by ``variant``, ``dtype`` and ``head_dim``),
+then, as the last line, ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --flash-planted-faults
+
+runs phase 4's bf16 rule on the sound tensor-core flash kernels and on
+copies with faults planted in far tiles, and exits 0 only if the sound
+kernels pass and every fault fails.
 """
 
 from __future__ import annotations
@@ -161,11 +188,20 @@ PROMPT_EVENTS = 10
 GENERATE_EVENTS = 1014
 FLASH_F32_TOL = 2e-4  # O and lse, absolute: f32, different summation orders
 FLASH_F32_GRAD_TOL = 5e-4  # gradients, of their scale: atomics reorder the sums
+FLASH_BF16_LSE_TOL = 1e-3  # lse, absolute: exact bf16 products summed in f32 on both sides
+# bf16 rows (of O, dq, dk, dv, dE): each row's error against its own norm,
+# floored at this share of the tensor's root-mean-square row norm (rows that
+# cancel to near zero, such as dq's first, carry only rounding noise).
+FLASH_ROW_FLOOR = 0.1
 FLASH_SHAPE = (8, 16, 1024, 16, 1024)  # B, H, S, D, W of the training path
+FLASH_FLAGSHIP_SHAPE = (8, 16, 2048, 64, 2048)  # the flagship's: 16 heads of 64, window 2048
 TRAIN_STEPS = 20
 TRAIN_BATCH, TRAIN_WINDOW = 8, 1024
+F32_TRAIN_STEPS = 3  # float32 steps: the scalar flash kernels' route
+FLAGSHIP_TRAIN_STEPS, FLAGSHIP_TRAIN_WINDOW = 5, 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate, published
+F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores, published
 
 
 def card_line() -> str:
@@ -511,10 +547,11 @@ def timings(device, engine, prompt, card: str) -> dict:
     return result
 
 
-def bound(byte_count: float, flops: float):
+def bound(byte_count: float, flops: float, flops_per_s: float = BF16_FLOPS):
     """``(ms, "bytes" | "operations")``: the least time for the work on an
-    H100 SXM at its published memory and bf16 tensor rates."""
-    by_bytes, by_ops = byte_count / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    H100 SXM at its published memory rate and ``flops_per_s`` (the bf16
+    tensor rate unless another is named)."""
+    by_bytes, by_ops = byte_count / HBM_BYTES_PER_S, flops / flops_per_s
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -534,14 +571,16 @@ def decode_bound(engine, batch: int, num_steps: int):
     return bound(weights + ids, flops)
 
 
-def flash_bound(use_rel: bool, backward: bool, elem_bytes: int = 2):
-    """One flash call at the training path's shapes. Forward reads q, k, v
+def flash_bound(shape, use_rel: bool, backward: bool, dtype=torch.bfloat16):
+    """One flash call at ``shape`` (B, H, S, D, W). Forward reads q, k, v
     (and E) and writes O and lse; the backward reads q, k, v, O, dO, lse
     (and E) and writes dq, dk, dv (and dE). Products over the causal pairs,
     2 D operations each: QK^T and PV (plus the band q.E) forward; the
     recomputed QK^T, dO V^T, P^T dO, dS K and dS^T Q (plus the band's
-    recompute, dq and dE) backward."""
-    B, H, S, D, W = FLASH_SHAPE
+    recompute, dq and dE) backward. bf16 at the tensor-core rate, float32
+    at the rate outside the tensor cores (the scalar kernels' FMAs)."""
+    B, H, S, D, W = shape
+    elem_bytes = torch.tensor([], dtype=dtype).element_size()
     tensor = B * H * S * D * elem_bytes
     table = H * W * D * elem_bytes if use_rel else 0
     rows = B * H * S * 4
@@ -550,13 +589,14 @@ def flash_bound(use_rel: bool, backward: bool, elem_bytes: int = 2):
         byte_count, products = 8 * tensor + rows + 2 * table, 5 + 3 * use_rel
     else:
         byte_count, products = 4 * tensor + rows + table, 2 + use_rel
-    return bound(byte_count, products * 2 * D * pairs)
+    return bound(byte_count, products * 2 * D * pairs,
+                 BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
 
 
-def flash_inputs(dtype, use_rel: bool, device, seed: int):
-    """q, k, v, E (or None) and a cotangent at the training path's shapes,
+def flash_inputs(dtype, use_rel: bool, device, seed: int, shape=FLASH_SHAPE):
+    """q, k, v, E (or None) and a cotangent at ``shape`` (B, H, S, D, W),
     from a numpy seed."""
-    B, H, S, D, W = FLASH_SHAPE
+    B, H, S, D, W = shape
     rng = np.random.default_rng(seed)
 
     def tensor(*shape, std=1.0):
@@ -566,54 +606,184 @@ def flash_inputs(dtype, use_rel: bool, device, seed: int):
     return q, k, v, tensor(H, W, D, std=0.25) if use_rel else None, dout
 
 
+# The routes phase 4 checks, each at the shapes the main path gives it:
+# (dtype, shape) -> (route, head_dim) of ops/flash_attention.py::VARIANTS.
+FLASH_CHECKS = ((torch.float32, FLASH_SHAPE), (torch.bfloat16, FLASH_SHAPE),
+                (torch.bfloat16, FLASH_FLAGSHIP_SHAPE))
+
+
+def flash_row_error(ours, plain) -> float:
+    """The largest ``|ours - plain|`` over the last axis's rows, each against
+    ``max(its plain row's norm, FLASH_ROW_FLOOR x the tensor's RMS row
+    norm)``."""
+    diff = torch.linalg.vector_norm(ours.float() - plain.float(), dim=-1)
+    norm = torch.linalg.vector_norm(plain.float(), dim=-1)
+    floor = FLASH_ROW_FLOOR * float(norm.square().mean().sqrt())
+    return float((diff / norm.clamp(min=floor)).max())
+
+
+def flash_errors(name: str, dtype, ours, plain):
+    """``(report, fault)`` of one flash output against its plain version.
+    The report holds ``max_abs_err``, ``scale`` (max |plain|) and, for bf16
+    rows, ``row_rel_err``; ``fault`` says which limit it broke, else None.
+    float32: O and lse within FLASH_F32_TOL, gradients within
+    FLASH_F32_GRAD_TOL x scale. bf16: lse within FLASH_BF16_LSE_TOL; every
+    other output within the bf16 rule both of its scale and, row by row, of
+    the row's own norm (``flash_row_error``)."""
+    err = float((ours.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    report = {"max_abs_err": err, "scale": scale}
+    if dtype == torch.bfloat16 and name == "lse":
+        limit = FLASH_BF16_LSE_TOL
+    elif dtype == torch.bfloat16:
+        limit = BF16_LOGIT_REL_TOL * scale
+        report["row_rel_err"] = flash_row_error(ours, plain)
+        if not report["row_rel_err"] <= BF16_LOGIT_REL_TOL:
+            return report, (f"{name}: a row differs by {report['row_rel_err']} of its norm "
+                            f"> {BF16_LOGIT_REL_TOL}")
+    elif name in ("O", "lse"):
+        limit = FLASH_F32_TOL
+    else:
+        limit = FLASH_F32_GRAD_TOL * scale
+    return report, None if err <= limit else f"{name} differs by {err} > {limit}"
+
+
+def flash_case(fa, dtype, shape, use_rel: bool, rate: float, device, label: str) -> dict:
+    """One phase-4 case: the flash kernels and their plain version on the
+    same inputs; returns ``{output name: (report, fault)}`` and prints it."""
+    seed = torch.tensor([20240611], dtype=torch.int32, device=device)
+    q, k, v, e, dout = flash_inputs(dtype, use_rel, device, seed=3, shape=shape)
+    kw = dict(scale=True, dropout_rate=rate, dropout_seed=seed if rate else None)
+    out, lse = fa.flash_attention_forward(q, k, v, e, **kw)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, e, **kw)
+    # Both backwards start from the plain forward's O and lse.
+    grads = fa.flash_attention_backward(q, k, v, e, ref_out, ref_lse, dout, **kw)
+    ref_grads = fa.flash_attention_backward_reference(q, k, v, e, ref_out, ref_lse, dout, **kw)
+    torch.cuda.synchronize()
+    pairs = [("O", out, ref_out), ("lse", lse, ref_lse)] + [
+        (name, ours, plain) for name, ours, plain in zip(("dq", "dk", "dv", "dE"), grads,
+                                                         ref_grads) if plain is not None]
+    results = {name: flash_errors(name, dtype, ours, plain) for name, ours, plain in pairs}
+    print(f"{label} {str(dtype)[6:]} B,H,S,D,W={shape} rel={use_rel} dropout={rate}: " + ", ".join(
+        f"{name} {r['max_abs_err']:.2e} (scale {r['scale']:.2f}"
+        + (f", row {r['row_rel_err']:.2e}" if "row_rel_err" in r else "") + ")"
+        + (" FAILS" if fault else "") for name, (r, fault) in results.items()), flush=True)
+    return results
+
+
 def flash_vs_plain(device) -> dict:
-    """Phase 4; returns the largest f32 forward (O, lse) and backward
-    (dq, dk, dv, dE) errors."""
+    """Phase 4; returns, by ``(route, head_dim)`` and direction (``fwd``: O,
+    lse; ``bwd``: dq, dk, dv, dE), the largest absolute error with its
+    tensor's scale and, for bf16, the largest row error of its norm."""
     from composer_tpu_torch.ops import flash_attention as fa
 
-    errors = {"fwd": 0.0, "bwd": 0.0}
-    before = (fa.flash_attention_forward.launches, fa.flash_attention_backward.launches)
-    seed = torch.tensor([20240611], dtype=torch.int32, device=device)
-    for dtype in (torch.float32, torch.bfloat16):
+    errors = {}
+    before = (sum(fa.flash_attention_forward.launches.values()),
+              sum(fa.flash_attention_backward.launches.values()))
+    for dtype, shape in FLASH_CHECKS:
+        variant = (fa.kernel_variant(dtype, shape[3]), shape[3])
+        worst = errors.setdefault(variant, {})
         for use_rel in (False, True):
             for rate in (0.0, 0.1):
-                q, k, v, e, dout = flash_inputs(dtype, use_rel, device, seed=3)
-                kw = dict(scale=True, dropout_rate=rate, dropout_seed=seed if rate else None)
-                out, lse = fa.flash_attention_forward(q, k, v, e, **kw)
-                ref_out, ref_lse = fa.flash_attention_reference(q, k, v, e, **kw)
-                # Both backwards start from the plain forward's O and lse.
-                grads = fa.flash_attention_backward(q, k, v, e, ref_out, ref_lse, dout, **kw)
-                ref_grads = fa.flash_attention_backward_reference(q, k, v, e, ref_out, ref_lse,
-                                                                  dout, **kw)
-                torch.cuda.synchronize()
-                diffs = {"O": (out, ref_out), "lse": (lse, ref_lse)}
-                diffs.update((name, pair) for name, pair in zip(("dq", "dk", "dv", "dE"),
-                                                                 zip(grads, ref_grads))
-                             if pair[1] is not None)
-                report = {}
-                for name, (ours, plain) in diffs.items():
-                    err = float((ours.float() - plain.float()).abs().max())
-                    scale = float(plain.float().abs().max())
-                    report[name] = (err, scale)
-                    if dtype == torch.bfloat16:
-                        limit = BF16_LOGIT_REL_TOL * scale
-                    elif name in ("O", "lse"):
-                        limit = FLASH_F32_TOL
-                        errors["fwd"] = max(errors["fwd"], err)
-                    else:
-                        limit = FLASH_F32_GRAD_TOL * scale
-                        errors["bwd"] = max(errors["bwd"], err)
-                    if not err <= limit:
-                        raise AssertionError(f"flash {dtype} rel={use_rel} dropout={rate}: "
-                                             f"{name} differs by {err} > {limit}")
-                print(f"flash {str(dtype)[6:]} rel={use_rel} dropout={rate}: " + ", ".join(
-                    f"{name} {err:.2e} (scale {scale:.2f})"
-                    for name, (err, scale) in report.items()), flush=True)
-    launched = (fa.flash_attention_forward.launches - before[0],
-                fa.flash_attention_backward.launches - before[1])
-    if launched != (8, 8):
-        raise AssertionError(f"flash launch counters did not rise by 8 each: {launched}")
+                results = flash_case(fa, dtype, shape, use_rel, rate, device,
+                                     f"flash {variant[0]}")
+                for name, (report, fault) in results.items():
+                    if fault:
+                        raise AssertionError(f"flash {dtype} {shape} rel={use_rel} "
+                                             f"dropout={rate}: {fault}")
+                    into = worst.setdefault("fwd" if name in ("O", "lse") else "bwd",
+                                            {"max_abs_err": 0.0, "scale": 0.0})
+                    if report["max_abs_err"] >= into["max_abs_err"]:
+                        into.update(max_abs_err=report["max_abs_err"], scale=report["scale"])
+                    if "row_rel_err" in report:
+                        into["row_rel_err"] = max(into.get("row_rel_err", 0.0),
+                                                  report["row_rel_err"])
+    launched = (sum(fa.flash_attention_forward.launches.values()) - before[0],
+                sum(fa.flash_attention_backward.launches.values()) - before[1])
+    if launched != (4 * len(FLASH_CHECKS),) * 2:
+        raise AssertionError(f"flash launch counters did not rise by "
+                             f"{4 * len(FLASH_CHECKS)} each: {launched}")
     return errors
+
+
+def planted_fault(kind: str, where: str) -> tuple:
+    """Edits ``(file, text, replacement)`` that plant a fault in a copy of
+    the tensor-core kernels, confined to the q-tile/k-tile pairs where the
+    C condition ``where`` (on ``ib``, ``jb`` and ``bh``) holds: ``"band"``
+    shifts the staged band by one row, ``"dropout"`` swaps two neighbouring
+    Philox words, forward and backward."""
+    if kind == "band":
+        return (("flash_attention_mma.cuh",
+                 "a.window - kBlock - (ib - jb) * kBlock, a.window);",
+                 f"a.window - kBlock - (ib - jb) * kBlock + ({where}), a.window);"),
+                ("flash_attention_mma.cuh",
+                 "W - kBlock - (ib - jb) * kBlock, W);",
+                 f"W - kBlock - (ib - jb) * kBlock + ({where}), W);"))
+    return (("flash_attention_mma.cuh",
+             "const unsigned w[4] = {wg.x, wg.y, wh.x, wh.y};",
+             f"const bool swap = {where};\n"
+             "        const unsigned w[4] = {swap ? wg.y : wg.x, swap ? wg.x : wg.y, wh.x, wh.y};"),
+            ("flash_attention_mma.cuh",
+             "words[c] = slot[4 * (4 * (4 * grp + c) + t) + 16 * grp + cl];",
+             "words[c] = slot[4 * (4 * (4 * grp + c) + t) + 16 * grp + cl];\n"
+             f"        if ({where}) {{ const unsigned w0 = words[0]; words[0] = words[1]; "
+             "words[1] = w0; }"))
+
+
+# Where each fault lies: every tile pair 4 or more apart, or (at S=1024, 16
+# tiles) the one pair of the last q-tile and the first k-tile of one head.
+FLASH_PLANTED_FAULTS = {
+    f"{kind}, {label}": planted_fault(kind, where) for kind in ("band", "dropout")
+    for label, where in (("tiles 4+ apart", "ib - jb >= 4"),
+                         ("tiles 15+ apart, head 0", "ib - jb >= 15 && bh == 0"))}
+
+
+def flash_planted_faults(device, card: str) -> int:
+    """``--flash-planted-faults``: phase 4's bf16 rule on the sound
+    tensor-core kernels and on each of ``FLASH_PLANTED_FAULTS``, built from
+    a copy of csrc/ under build/planted/, at both bf16 shapes with the band
+    and dropout 0.1. Returns 0 when the sound kernels pass and every planted
+    fault fails the rule; prints whether the rule of scale alone (each
+    element within 2% of its tensor's largest value) would have passed."""
+    import shutil
+
+    from composer_tpu_torch.ops import _build
+    from composer_tpu_torch.ops import flash_attention as fa
+
+    sound = _build.CSRC
+    as_intended = True
+    try:
+        for index, (fault, edits) in enumerate((("sound", ()),)
+                                               + tuple(FLASH_PLANTED_FAULTS.items())):
+            if edits:
+                csrc = _build.BUILD_DIR.parent / "planted" / str(index) / "csrc"
+                shutil.rmtree(csrc, ignore_errors=True)
+                shutil.copytree(sound, csrc)
+                for name, text, replacement in edits:
+                    source = (csrc / name).read_text()
+                    if source.count(text) != 1:
+                        raise AssertionError(f"planted fault {fault!r}: {text!r} not found once")
+                    (csrc / name).write_text(source.replace(text, replacement))
+                _build.CSRC = csrc
+            _build._LIBRARIES.pop("flash_attention", None)
+            _build.load_library("flash_attention")
+            for shape in (FLASH_SHAPE, FLASH_FLAGSHIP_SHAPE):
+                results = flash_case(fa, torch.bfloat16, shape, True, 0.1, device,
+                                     f"flash fault {fault!r}")
+                faults = [f for _, f in results.values() if f]
+                scale_rule = all(report["max_abs_err"] <= BF16_LOGIT_REL_TOL * report["scale"]
+                                 for name, (report, _) in results.items() if name != "lse")
+                print(f"flash fault {fault!r} B,H,S,D,W={shape}: the rule of scale alone "
+                      f"{'passes' if scale_rule else 'fails'}; phase 4's rule "
+                      + ("fails (" + "; ".join(faults) + ")" if faults else "passes")
+                      + f" [{card}]", flush=True)
+                as_intended &= bool(faults) == bool(edits)
+    finally:
+        _build.CSRC = sound
+        _build._LIBRARIES.pop("flash_attention", None)
+    print(f"planted faults: {'every one fails phase 4' if as_intended else 'NOT AS INTENDED'}",
+          flush=True)
+    return 0 if as_intended else 1
 
 
 def training_corpus(config, events: int) -> np.ndarray:
@@ -638,20 +808,62 @@ def training_corpus(config, events: int) -> np.ndarray:
     return np.concatenate(chunks)
 
 
+def reset_flash_counts() -> None:
+    from composer_tpu_torch.ops import flash_attention as fa
+
+    for wrapper in (fa.flash_attention_forward, fa.flash_attention_backward):
+        wrapper.launches = dict.fromkeys(wrapper.launches, 0)
+
+
+def flash_counts(variant) -> tuple:
+    """(forward, backward) launches of one route since the last reset."""
+    from composer_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_attention_forward.launches[variant],
+            fa.flash_attention_backward.launches[variant])
+
+
+def timed_train(trainer, state, dataset, logdir):
+    """``Trainer.train`` for one epoch with the host clock around each step
+    (after a synchronize); returns ``(state, step seconds, losses, the
+    trainer's events_per_second scalar)``."""
+    step_seconds = []
+    train_step = trainer.train_step
+
+    def timed_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = train_step(*args, **kwargs)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - start)
+        return metrics
+
+    trainer.train_step = timed_step
+    try:
+        state = trainer.train(dataset, state, logdir, epochs=1, show_progress_bar=False)
+    finally:
+        del trainer.train_step  # later callers run the step without the timing syncs
+    rows = [json.loads(line) for line in
+            (Path(logdir) / "train" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in sorted(rows, key=lambda r: r["step"]) if r["name"] == "loss"]
+    scalar = [r["value"] for r in rows if r["name"] == "events_per_second"][0]
+    return state, step_seconds, losses, scalar
+
+
 def train_path(device, card: str, prompt) -> dict:
     """Phase 5: ``Trainer.train`` through the flash kernels, checkpoint,
-    restore in a fresh Trainer, generate with the restored model."""
+    restore in a fresh Trainer, generate with the restored model; then a
+    few float32 steps, the scalar kernels' route."""
     from composer_tpu_torch.config import get_default
     from composer_tpu_torch.data import WindowDataset
     from composer_tpu_torch.models import ModelType, create_model
-    from composer_tpu_torch.ops import flash_attention as fa
     from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
     from composer_tpu_torch.train import generate as gen
     from composer_tpu_torch.train.checkpoint import CheckpointManager
     from composer_tpu_torch.train.trainer import Trainer
 
-    results = {"fwd": 0, "bwd": 0, "restored": None}
-    expected = TRAIN_STEPS * 8  # layers x steps
+    results = {"launches": {("mma", 16): (0, 0), ("scalar", 16): (0, 0)}, "restored": None}
+    expected = (TRAIN_STEPS * 8,) * 2  # layers x steps, each way
     for use_relative in (False, True):
         config = get_default()
         config.transformer.model.use_pallas_attention = True
@@ -667,29 +879,10 @@ def train_path(device, card: str, prompt) -> dict:
         trainer = Trainer(model, ModelType.TRANSFORMER, learning_rate=1e-3, seed=0,
                           device=device)
         state = trainer.init_state(TRAIN_BATCH, TRAIN_WINDOW)
-        step_seconds = []
-        train_step = trainer.train_step
-
-        def timed_step(*args, **kwargs):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            metrics = train_step(*args, **kwargs)
-            torch.cuda.synchronize()
-            step_seconds.append(time.perf_counter() - start)
-            return metrics
-
-        trainer.train_step = timed_step
         with tempfile.TemporaryDirectory() as tmp:
-            fa.flash_attention_forward.launches = 0
-            fa.flash_attention_backward.launches = 0
-            state = trainer.train(dataset, state, tmp, epochs=1, show_progress_bar=False)
-            launches = (fa.flash_attention_forward.launches,
-                        fa.flash_attention_backward.launches)
-            rows = [json.loads(line) for line in
-                    (Path(tmp) / "train" / "metrics.jsonl").read_text().splitlines()]
-            losses = [r["value"] for r in sorted(rows, key=lambda r: r["step"])
-                      if r["name"] == "loss"]
-            scalar = [r["value"] for r in rows if r["name"] == "events_per_second"][0]
+            reset_flash_counts()
+            state, step_seconds, losses, scalar = timed_train(trainer, state, dataset, tmp)
+            launches = flash_counts(("mma", 16))
             steps = CheckpointManager(tmp).steps()
 
             fresh, _ = create_model(ModelType.TRANSFORMER, config, device=device)
@@ -706,16 +899,16 @@ def train_path(device, card: str, prompt) -> dict:
 
         mean_step = float(np.mean(step_seconds[1:]))
         print(f"train rel={use_relative}: {len(losses)} steps, loss {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f}, flash launches fwd {launches[0]} bwd {launches[1]}, "
-              f"checkpoints {steps}, restored equal={same}, generated {ids.shape} with "
-              f"{decode_launches} decode launch(es)", flush=True)
+              f"{losses[-1]:.4f}, flash (bf16 tensor-core) launches fwd {launches[0]} bwd "
+              f"{launches[1]}, checkpoints {steps}, restored equal={same}, generated "
+              f"{ids.shape} with {decode_launches} decode launch(es)", flush=True)
         print(f"train rel={use_relative} step time {mean_step * 1e3:.2f} ms (steps 2-"
               f"{TRAIN_STEPS}, host clock after synchronize; min {min(step_seconds[1:]) * 1e3:.2f}"
               f", max {max(step_seconds[1:]) * 1e3:.2f}), {TRAIN_BATCH * TRAIN_WINDOW / mean_step:.1f}"
               f" train events/s; step 1 {step_seconds[0] * 1e3:.2f} ms; the trainer's "
               f"events_per_second scalar {scalar:.1f} [{card}]", flush=True)
-        if launches != (expected, expected):
-            raise AssertionError(f"flash launches {launches}, wanted {expected} each")
+        if launches != expected:
+            raise AssertionError(f"flash launches {launches}, wanted {expected}")
         if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
             raise AssertionError(f"bad losses: {losses}")
         if not losses[-1] < losses[0]:
@@ -726,13 +919,81 @@ def train_path(device, card: str, prompt) -> dict:
                 or ids.max() >= 390:
             raise AssertionError(f"generation after restore failed: {ids.shape}, "
                                  f"{decode_launches} launches")
-        del trainer.train_step  # the profile runs the step without the timing syncs
         profile_steps(trainer, state, dataset, card)
-        results["fwd"] += launches[0]
-        results["bwd"] += launches[1]
+        total = results["launches"][("mma", 16)]
+        results["launches"][("mma", 16)] = (total[0] + launches[0], total[1] + launches[1])
         if not use_relative:
             results["restored"] = restored.model.eval()
+
+    # float32 compute (mixed_precision off): the scalar kernels' route.
+    config = get_default()
+    config.transformer.model.use_pallas_attention = True
+    config.transformer.model.use_relative_attention = True
+    model, _ = create_model(ModelType.TRANSFORMER, config, device=device, dtype=torch.float32)
+    events = TRAIN_BATCH * (TRAIN_WINDOW + 1) * F32_TRAIN_STEPS
+    dataset = WindowDataset(training_corpus(config, events)[:events], TRAIN_BATCH, TRAIN_WINDOW,
+                            shuffle=True, seed=0)
+    trainer = Trainer(model, ModelType.TRANSFORMER, learning_rate=1e-3, seed=0, device=device)
+    state = trainer.init_state(TRAIN_BATCH, TRAIN_WINDOW)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_flash_counts()
+        state, step_seconds, losses, _ = timed_train(trainer, state, dataset, tmp)
+        launches = flash_counts(("scalar", 16))
+    mean_step = float(np.mean(step_seconds[1:]))
+    print(f"train f32 rel=True: {len(losses)} steps, losses {[round(x, 4) for x in losses]}, "
+          f"flash (f32 scalar) launches fwd {launches[0]} bwd {launches[1]}; step time "
+          f"{mean_step * 1e3:.2f} ms (steps 2-{F32_TRAIN_STEPS}), "
+          f"{TRAIN_BATCH * TRAIN_WINDOW / mean_step:.1f} train events/s [{card}]", flush=True)
+    if launches != (F32_TRAIN_STEPS * 8,) * 2:
+        raise AssertionError(f"f32 flash launches {launches}, wanted {F32_TRAIN_STEPS * 8} each")
+    if len(losses) != F32_TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"bad f32 losses: {losses}")
+    results["launches"][("scalar", 16)] = launches
     return results
+
+
+def flagship_train_path(device, card: str) -> dict:
+    """Phase 5b: ``Trainer.train`` on the embed-1024 flagship (8 layers x 16
+    heads of 64, window 2048, relative attention) with its flash recipe:
+    ``use_pallas_attention``, bf16 compute (``mixed_precision``), dropout
+    0.1 / 0.1, batch 8 x 2048, lr 1e-3, on codec-encoded event ids."""
+    from composer_tpu_torch.config import get_default
+    from composer_tpu_torch.data import WindowDataset
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from composer_tpu_torch.train.trainer import Trainer
+
+    config = TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16, attention_dropout_rate=0.1,
+                               residual_dropout_rate=0.1, use_pallas_attention=True)
+    steps, window = FLAGSHIP_TRAIN_STEPS, FLAGSHIP_TRAIN_WINDOW
+    events = TRAIN_BATCH * (window + 1) * steps
+    dataset = WindowDataset(training_corpus(get_default(), events)[:events], TRAIN_BATCH, window,
+                            shuffle=True, seed=0)
+    if len(dataset) != steps:
+        raise AssertionError(f"{len(dataset)} batches, wanted {steps}")
+    trainer = Trainer(Transformer(config), ModelType.TRANSFORMER, learning_rate=1e-3, seed=0,
+                      device=device)
+    state = trainer.init_state(TRAIN_BATCH, window)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_flash_counts()
+        state, step_seconds, losses, scalar = timed_train(trainer, state, dataset, tmp)
+        launches = flash_counts(("mma", 64))
+    mean_step = float(np.mean(step_seconds[1:]))
+    print(f"flagship train: {len(losses)} steps, losses {[round(x, 4) for x in losses]}, flash "
+          f"(bf16 tensor-core, head_dim 64) launches fwd {launches[0]} bwd {launches[1]}",
+          flush=True)
+    print(f"flagship train step time {mean_step * 1e3:.2f} ms (steps 2-{steps}, host clock after "
+          f"synchronize; min {min(step_seconds[1:]) * 1e3:.2f}, max "
+          f"{max(step_seconds[1:]) * 1e3:.2f}), {TRAIN_BATCH * window / mean_step:.1f} train "
+          f"events/s; step 1 {step_seconds[0] * 1e3:.2f} ms; the trainer's events_per_second "
+          f"scalar {scalar:.1f} [{card}]", flush=True)
+    if launches != (steps * FLAGSHIP["num_layers"],) * 2:
+        raise AssertionError(f"flagship flash launches {launches}, wanted "
+                             f"{steps * FLAGSHIP['num_layers']} each")
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"bad flagship losses: {losses}")
+    profile_steps(trainer, state, dataset, card)
+    return {"launches": launches, "step_ms": mean_step * 1e3}
 
 
 def profile_steps(trainer, state, dataset, card: str, steps: int = 3) -> None:
@@ -781,28 +1042,31 @@ def cuda_ms(fn, repeats: int) -> float:
     return begin.elapsed_time(end) / repeats
 
 
-def flash_timings(device, card: str) -> dict:
+def flash_timings(device, card: str, dtype, shape, plain_repeats: int = 3) -> dict:
     """Kernel, plain version and SDPA (relative attention off only; a
-    yardstick, not used by the port) at the training path's shapes, bf16."""
+    yardstick, not used by the port) at ``shape`` (B, H, S, D, W) in
+    ``dtype``, for relative attention off and on and dropout 0 and 0.1."""
     from composer_tpu_torch.ops import flash_attention as fa
 
     seed = torch.tensor([5], dtype=torch.int32, device=device)
+    route = fa.kernel_variant(dtype, shape[3])
     result = {}
     for use_rel in (False, True):
         for rate in (0.0, 0.1):
-            q, k, v, e, dout = flash_inputs(torch.bfloat16, use_rel, device, seed=4)
+            q, k, v, e, dout = flash_inputs(dtype, use_rel, device, seed=4, shape=shape)
             kw = dict(scale=True, dropout_rate=rate, dropout_seed=seed if rate else None)
             out, lse = fa.flash_attention_forward(q, k, v, e, **kw)
             times = {
                 "fwd": cuda_ms(lambda: fa.flash_attention_forward(q, k, v, e, **kw), 20),
                 "bwd": cuda_ms(lambda: fa.flash_attention_backward(
                     q, k, v, e, out, lse, dout, **kw), 20),
-                "plain_fwd": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, e, **kw), 3),
+                "plain_fwd": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, e, **kw),
+                                     plain_repeats),
                 "plain_bwd": cuda_ms(lambda: fa.flash_attention_backward_reference(
-                    q, k, v, e, out, lse, dout, **kw), 3),
+                    q, k, v, e, out, lse, dout, **kw), plain_repeats),
             }
             for direction in ("fwd", "bwd"):
-                ms, by = flash_bound(use_rel, direction == "bwd")
+                ms, by = flash_bound(shape, use_rel, direction == "bwd", dtype)
                 times[f"bound_{direction}"], times[f"bound_by_{direction}"] = ms, by
             if not use_rel and rate == 0.0:
                 qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
@@ -813,10 +1077,13 @@ def flash_timings(device, card: str) -> dict:
                 graph = sdpa(qs, ks, vs, is_causal=True)
                 times["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
                     graph, (qs, ks, vs), dout, retain_graph=True), 20)
+                del qs, ks, vs, graph
             result[(use_rel, rate)] = times
-            print(f"flash bf16 rel={use_rel} dropout={rate}: " + ", ".join(
-                f"{name} {value:.4f} ms" if isinstance(value, float) else f"{name} {value}"
-                for name, value in times.items()) + f" [{card}]", flush=True)
+            print(f"flash {route} {str(dtype)[6:]} B,H,S,D,W={shape} rel={use_rel} "
+                  f"dropout={rate}: " + ", ".join(
+                      f"{name} {value:.4f} ms" if isinstance(value, float) else f"{name} {value}"
+                      for name, value in times.items()) + f" [{card}]", flush=True)
+            del q, k, v, e, dout, out, lse
     return result
 
 
@@ -2164,6 +2431,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    if sys.argv[1:] == ["--flash-planted-faults"]:
+        return flash_planted_faults(device, card)
     start = time.perf_counter()
     libraries = ("decode_generate", "flash_attention", "spec_decode", "decode_segment",
                  "decode_wide", "decode_wide_segment")
@@ -2177,9 +2446,15 @@ def main() -> int:
     errors = kernel_vs_plain(device)
     path = main_path(device, card)
     times = timings(device, path["engine"], path["prompt"], card)
-    flash_errors = flash_vs_plain(device)
+    flash_check = flash_vs_plain(device)
     training = train_path(device, card, path["prompt"])
-    flash_times = flash_timings(device, card)[(False, 0.0)]
+    flagship_training = flagship_train_path(device, card)
+    flash_times = {
+        ("mma", 16): flash_timings(device, card, torch.bfloat16, FLASH_SHAPE),
+        ("mma", 64): flash_timings(device, card, torch.bfloat16, FLASH_FLAGSHIP_SHAPE,
+                                   plain_repeats=1),
+        ("scalar", 16): flash_timings(device, card, torch.float32, FLASH_SHAPE),
+    }
     spec_error = spec_vs_plain(device)
     spec = spec_path(device, card, training["restored"])
     segment_error = segment_vs_plain(device)
@@ -2204,17 +2479,31 @@ def main() -> int:
             "source": source, "replaces": replaces, "launches": path["launches"][form],
             "max_abs_err": errors[form], "ms": times[form][0], "plain_ms": times[form][1],
             "bound_ms": ms, "bound_by": by, "library_ms": None})
-    flash_source = "composer_tpu_torch/csrc/flash_attention.cu"
-    for direction, replaces in (("fwd", "composer_tpu/ops/pallas_attention.py:235"),
-                                ("bwd", "composer_tpu/ops/pallas_attention.py:294")):
-        kernels.append({
-            "name": f"flash_attention_{direction}", "route": "cuda", "source": flash_source,
-            "replaces": replaces, "launches": training[direction],
-            "max_abs_err": flash_errors[direction], "ms": flash_times[direction],
-            "plain_ms": flash_times[f"plain_{direction}"],
-            "bound_ms": flash_times[f"bound_{direction}"],
-            "bound_by": flash_times[f"bound_by_{direction}"],
-            "library_ms": flash_times[f"sdpa_{direction}"]})
+    flash_launches = {("mma", 16): training["launches"][("mma", 16)],
+                      ("mma", 64): flagship_training["launches"],
+                      ("scalar", 16): training["launches"][("scalar", 16)]}
+    # One entry a direction for each (dtype, head_dim) built: max_abs_err is
+    # absolute, beside its tensor's scale (err_scale) and, for bf16, the
+    # largest row error of the row's norm (row_rel_err).
+    for variant, dtype, source in (
+            (("mma", 16), "bfloat16", "flash_attention_mma.cuh"),
+            (("mma", 64), "bfloat16", "flash_attention_mma.cuh"),
+            (("scalar", 16), "float32", "flash_attention.cu")):
+        times = flash_times[variant][(False, 0.0)]
+        for index, (direction, replaces) in enumerate((
+                ("fwd", "composer_tpu/ops/pallas_attention.py:235"),
+                ("bwd", "composer_tpu/ops/pallas_attention.py:294"))):
+            check = flash_check[variant][direction]
+            kernels.append({
+                "name": f"flash_attention_{direction}", "route": "cuda",
+                "variant": variant[0], "dtype": dtype, "head_dim": variant[1],
+                "source": f"composer_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": flash_launches[variant][index],
+                "max_abs_err": check["max_abs_err"], "err_scale": check["scale"],
+                "row_rel_err": check.get("row_rel_err"), "ms": times[direction],
+                "plain_ms": times[f"plain_{direction}"], "bound_ms": times[f"bound_{direction}"],
+                "bound_by": times[f"bound_by_{direction}"],
+                "library_ms": times[f"sdpa_{direction}"]})
     kernels.append({
         "name": "spec_decode (B=1)", "route": "cuda",
         "source": "composer_tpu_torch/csrc/spec_decode.cu",

@@ -24,26 +24,61 @@
 // one per element, so the backward regenerates the forward's mask whatever
 // its tiling; the row normaliser l comes from the undropped p.
 //
-// Design. One thread per row of a 64-row tile, float32 arithmetic on tiles
-// staged in shared memory (rows padded to D+4 floats so that the per-thread
-// rows of the relative band are read as conflict-free 16-byte loads).
-// head_dim 16 is too narrow to keep tensor cores busy; this first kernel
-// uses scalar FMAs and is bound by issue rate, far above the card's memory
-// bound (see PERF.md).
+// Two pairs of kernels, one per route (ops/flash_attention.py::kernel_variant):
 //
-// * Forward, grid (S/64, BH): thread i keeps q_i, the running max, sum and
-//   output row in registers and walks the k-tiles at or before the diagonal
-//   (online softmax). The relative band a tile needs is 128 rows of E,
-//   staged beside the K and V tiles; element (i, j) reads band row 63-i+j.
-// * Backward, grid (S/64, BH), FlashAttention-2 order: thread j owns key j
-//   of one k-tile (dK, dV in registers) and walks the q-tiles at or after
-//   the diagonal, recomputing p from lse. ds goes to shared memory; then
-//   thread i forms its dq row and adds it to dq with float32 atomics, and
-//   the band gradient (dE rows) collects in two 64-row shared buffers that
-//   are flushed to dE with atomics once no later q-tile can touch them.
-//   Blocks of different (b, k-tile) share dq and dE rows, which the TPU
-//   accumulated in place only because its grid ran in order; the atomics
-//   make the summation order vary between runs.
+// * bf16, head_dim 16 and 64: the tensor-core kernels of
+//   flash_attention_mma.cuh (flash_forward_mma_kernel, replacing
+//   _flash_kernel; flash_backward_mma_kernel, replacing _flash_bwd_kernel).
+//   Every product is mma.sync.m16n8k16 (bf16 in, float32 sums): QK^T, PV,
+//   the relative band, and the backward's. What bounds them on this card is
+//   not the tensor cores (chip_smoke.py's flash_bound is several times
+//   below their time; PERF.md) but the work around each score and the
+//   shared-memory and atomic traffic: at head_dim 16 a score takes 2 x 16 operations of QK^T
+//   and PV against one exp2, a mask test and, with dropout, a quarter of a
+//   10-round Philox call; the band adds a product and a skewed read. The
+//   design keeps that work small and off the critical path:
+//   - 4 warps of 16 rows a block; Q fragments in registers; tiles staged
+//     with cp.async (the forward's K, V and E double-buffered) at a padded
+//     pitch, so ldmatrix is free of bank conflicts; P goes from the S accumulators to the PV
+//     operands in registers;
+//   - exp2 with the scale and log2(e) folded into one multiply;
+//   - dropout: one Philox call (4 words) a lane per 8-key tile, its words
+//     handed to the lanes that need them through a per-warp shared buffer (selects and
+//     shuffles cost more than the Philox rounds);
+//   - the relative band as a product: a warp's 16 rows reach 80 band rows,
+//     so q.E is one 16 x 80 product, staged in the warp's shared memory and
+//     read back skewed (the Music Transformer's skew), with no block barrier
+//     in the forward;
+//   - shared memory sized by the bias, so that more blocks fit an SM without
+//     it.
+//   The backward recomputes P from lse (FlashAttention-2 order, one 64-key
+//   tile a block, 16 keys a warp), keeps dK and dV in registers, stages dS^T
+//   in shared memory as bf16 and forms dq = c (dS K + Bm E_band) from it (Bm
+//   the skewed dS), sent with 4-float atomics. dE_band = c Bm^T Q: each warp
+//   keeps the 16 band rows it owns in registers; a q-tile's low rows are
+//   the next q-tile's high rows of the same warp, so each dE row leaves
+//   once, as 4-float atomics, when no later q-tile reaches it.
+// * float32, head_dim 16: the scalar kernels below (flash_forward_kernel,
+//   flash_backward_kernel; the f32 parity tests and f32 training). One
+//   thread per row of a 64-row tile, float32 FMAs on tiles staged in shared
+//   memory (rows padded to D+4 floats so that the per-thread rows of the
+//   relative band are read as conflict-free 16-byte loads); bound by issue
+//   rate, far above the card's memory bound (see PERF.md).
+//   - Forward, grid (S/64, BH): thread i keeps q_i, the running max, sum
+//     and output row in registers and walks the k-tiles at or before the
+//     diagonal (online softmax). The relative band a tile needs is 128 rows
+//     of E, staged beside the K and V tiles; element (i, j) reads band row
+//     63-i+j.
+//   - Backward, grid (S/64, BH), FlashAttention-2 order: thread j owns key j
+//     of one k-tile (dK, dV in registers) and walks the q-tiles at or after
+//     the diagonal, recomputing p from lse. ds goes to shared memory; then
+//     thread i forms its dq row and adds it to dq with float32 atomics, and
+//     the band gradient (dE rows) collects in two 64-row shared buffers that
+//     are flushed to dE with atomics once no later q-tile can touch them.
+//
+// Blocks of different (b, k-tile) share dq and dE rows, which the TPU
+// accumulated in place only because its grid ran in order; the atomics make
+// the summation order vary between runs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // C entry points: flash_attention_forward(...), flash_attention_backward(...);
@@ -55,19 +90,10 @@
 
 namespace {
 
-constexpr int kBlock = 64;          // rows per tile; one thread per row
+constexpr int kBlock = 64;          // rows per tile (scalar kernels: one thread per row)
 constexpr int kBand = 2 * kBlock;   // relative-table rows one tile can need
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxSharedBytes = 232448;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Args {
   const void* q;
@@ -154,28 +180,28 @@ __device__ __forceinline__ void axpy(float (&acc)[D], float w, const float* row)
   }
 }
 
-// rows x D elements of T from global (row-major, contiguous) into shared
+// rows x D floats from global (row-major, contiguous) into shared
 // memory as float32 rows of pitch D+4.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int rows) {
   constexpr int P = D + 4;
   for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-    dst[(idx / D) * P + idx % D] = to_f(src[idx]);
+    dst[(idx / D) * P + idx % D] = src[idx];
   }
 }
 
 // The 128 band rows E[first .. first+127] of one head (zeros outside [0, W)).
-template <typename T, int D>
-__device__ __forceinline__ void load_band(float* dst, const T* e_head, int first, int window) {
+template <int D>
+__device__ __forceinline__ void load_band(float* dst, const float* e_head, int first, int window) {
   constexpr int P = D + 4;
   for (int idx = threadIdx.x; idx < kBand * D; idx += blockDim.x) {
     const int row = first + idx / D;
     dst[(idx / D) * P + idx % D] =
-        (row >= 0 && row < window) ? to_f(e_head[(size_t)row * D + idx % D]) : 0.f;
+        (row >= 0 && row < window) ? e_head[(size_t)row * D + idx % D] : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
   constexpr int P = D + 4;
   extern __shared__ __align__(16) float smem[];
@@ -188,25 +214,26 @@ __global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
   const int bh = blockIdx.y, h = bh % a.heads;
   const int i = threadIdx.x, qpos = ib * kBlock + i;
   const size_t base = (size_t)bh * a.seq * D;
-  const T* q = static_cast<const T*>(a.q) + base;
-  const T* k = static_cast<const T*>(a.k) + base;
-  const T* v = static_cast<const T*>(a.v) + base;
-  const T* e_head = a.use_rel ? static_cast<const T*>(a.e) + (size_t)h * a.window * D : nullptr;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* e_head =
+      a.use_rel ? static_cast<const float*>(a.e) + (size_t)h * a.window * D : nullptr;
   const unsigned seed = a.dropout ? (unsigned)*a.seed : 0u;
 
   float qr[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = to_f(q[(size_t)qpos * D + d]);
+    qr[d] = q[(size_t)qpos * D + d];
     acc[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
 
   for (int jb = 0; jb <= ib; ++jb) {
     __syncthreads();  // the previous tile is consumed
-    load_tile<T, D>(ks, k + (size_t)jb * kBlock * D, kBlock);
-    load_tile<T, D>(vs, v + (size_t)jb * kBlock * D, kBlock);
-    if (a.use_rel) load_band<T, D>(es, e_head, a.window - kBlock - (ib - jb) * kBlock, a.window);
+    load_tile<D>(ks, k + (size_t)jb * kBlock * D, kBlock);
+    load_tile<D>(vs, v + (size_t)jb * kBlock * D, kBlock);
+    if (a.use_rel) load_band<D>(es, e_head, a.window - kBlock - (ib - jb) * kBlock, a.window);
     __syncthreads();
 
     float s[kBlock];
@@ -243,14 +270,14 @@ __global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
     m = m_new;
   }
 
-  T* out = static_cast<T*>(a.out) + base + (size_t)qpos * D;
+  float* out = static_cast<float*>(a.out) + base + (size_t)qpos * D;
   const float inv_l = 1.f / l;
 #pragma unroll
-  for (int d = 0; d < D; ++d) out[d] = from_f<T>(acc[d] * inv_l);
+  for (int d = 0; d < D; ++d) out[d] = acc[d] * inv_l;
   a.lse[(size_t)bh * a.seq + qpos] = m + logf(l);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBlock) flash_backward_kernel(const Args a) {
   constexpr int P = D + 4;
   constexpr int DS = kBlock + 1;  // ds pitch: row and column reads conflict-free
@@ -270,33 +297,33 @@ __global__ void __launch_bounds__(kBlock) flash_backward_kernel(const Args a) {
   const int tid = threadIdx.x, kpos = jb * kBlock + tid;
   const int W = a.window;
   const size_t base = (size_t)bh * a.seq * D;
-  const T* q = static_cast<const T*>(a.q) + base;
-  const T* k = static_cast<const T*>(a.k) + base;
-  const T* v = static_cast<const T*>(a.v) + base;
-  const T* dout = static_cast<const T*>(a.dout) + base;
-  const T* e_head = a.use_rel ? static_cast<const T*>(a.e) + (size_t)h * W * D : nullptr;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
+  const float* e_head = a.use_rel ? static_cast<const float*>(a.e) + (size_t)h * W * D : nullptr;
   float* de_head = a.use_rel ? a.de + (size_t)h * W * D : nullptr;
   const unsigned seed = a.dropout ? (unsigned)*a.seed : 0u;
 
   float kr[D], vr[D], dk[D], dv[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    kr[d] = to_f(k[(size_t)kpos * D + d]);
-    vr[d] = to_f(v[(size_t)kpos * D + d]);
+    kr[d] = k[(size_t)kpos * D + d];
+    vr[d] = v[(size_t)kpos * D + d];
     dk[d] = 0.f;
     dv[d] = 0.f;
   }
-  load_tile<T, D>(ks, k + (size_t)jb * kBlock * D, kBlock);
+  load_tile<D>(ks, k + (size_t)jb * kBlock * D, kBlock);
   for (int idx = tid; idx < 2 * kBlock * D; idx += kBlock) seg[idx] = 0.f;
 
   for (int ib = jb; ib < nb; ++ib) {
     const int t = ib - jb;
     __syncthreads();  // the previous q-tile is consumed
-    load_tile<T, D>(qs, q + (size_t)ib * kBlock * D, kBlock);
-    load_tile<T, D>(dos, dout + (size_t)ib * kBlock * D, kBlock);
+    load_tile<D>(qs, q + (size_t)ib * kBlock * D, kBlock);
+    load_tile<D>(dos, dout + (size_t)ib * kBlock * D, kBlock);
     lse_s[tid] = a.lse[(size_t)bh * a.seq + ib * kBlock + tid];
     delta_s[tid] = a.delta[(size_t)bh * a.seq + ib * kBlock + tid];
-    if (a.use_rel) load_band<T, D>(es, e_head, W - kBlock - t * kBlock, W);
+    if (a.use_rel) load_band<D>(es, e_head, W - kBlock - t * kBlock, W);
     __syncthreads();
 
     // Phase 1, thread = key: p, ds, and this key's dK and dV.
@@ -376,12 +403,12 @@ __global__ void __launch_bounds__(kBlock) flash_backward_kernel(const Args a) {
     }
   }
 
-  T* dk_out = static_cast<T*>(a.dk) + base + (size_t)kpos * D;
-  T* dv_out = static_cast<T*>(a.dv) + base + (size_t)kpos * D;
+  float* dk_out = static_cast<float*>(a.dk) + base + (size_t)kpos * D;
+  float* dv_out = static_cast<float*>(a.dv) + base + (size_t)kpos * D;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    dk_out[d] = from_f<T>(a.scale * dk[d]);
-    dv_out[d] = from_f<T>(dv[d]);
+    dk_out[d] = a.scale * dk[d];
+    dv_out[d] = dv[d];
   }
 }
 
@@ -393,30 +420,59 @@ template <int D> constexpr size_t backward_smem() {
                           2 * kBlock + 2 * kBlock * D);
 }
 
+// The bf16 tensor-core kernels; they share Args, the constants and Philox
+// with the scalar kernels above.
+#include "flash_attention_mma.cuh"
+
 template <typename K>
-int launch(K kernel, size_t smem, const Args& a, cudaStream_t stream) {
+int launch(K kernel, int threads, size_t smem, const Args& a, cudaStream_t stream) {
   if (smem > (size_t)kMaxSharedBytes || a.seq % kBlock != 0) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(a.seq / kBlock, a.bh), kBlock, smem, stream>>>(a);
+  kernel<<<dim3(a.seq / kBlock, a.bh), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Built for head_dim 16 (the default model's) only; the kernels take D as a
-// template parameter, so another width is one more instantiation.
-constexpr int kHeadDim = 16;
+// The instances built, one per (route, head_dim) of
+// ops/flash_attention.py::VARIANTS, which picks the route; any other
+// (route, head_dim) is refused.
+constexpr int kScalarHeadDim = 16;
 
-template <typename T>
-int forward(int depth, const Args& a, cudaStream_t stream) {
-  if (depth != kHeadDim) return (int)cudaErrorInvalidValue;
-  return launch(flash_forward_kernel<T, kHeadDim>, forward_smem<kHeadDim>(), a, stream);
+int forward(int mma, int depth, const Args& a, cudaStream_t stream) {
+  if (!mma) {
+    if (depth != kScalarHeadDim) return (int)cudaErrorInvalidValue;
+    return launch(flash_forward_kernel<kScalarHeadDim>, kBlock, forward_smem<kScalarHeadDim>(),
+                  a, stream);
+  }
+  switch (depth) {
+    case 16:
+      return launch(flash_forward_mma_kernel<16>, kMmaThreads,
+                    forward_mma_smem<16>(a.use_rel), a, stream);
+    case 64:
+      return launch(flash_forward_mma_kernel<64>, kMmaThreads,
+                    forward_mma_smem<64>(a.use_rel), a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-template <typename T>
-int backward(int depth, const Args& a, cudaStream_t stream) {
-  if (depth != kHeadDim) return (int)cudaErrorInvalidValue;
-  return launch(flash_backward_kernel<T, kHeadDim>, backward_smem<kHeadDim>(), a, stream);
+int backward(int mma, int depth, const Args& a, cudaStream_t stream) {
+  if (!mma) {
+    if (depth != kScalarHeadDim) return (int)cudaErrorInvalidValue;
+    return launch(flash_backward_kernel<kScalarHeadDim>, kBlock,
+                  backward_smem<kScalarHeadDim>(), a, stream);
+  }
+  switch (depth) {
+    case 16:
+      return launch(flash_backward_mma_kernel<16>, kMmaThreads,
+                    backward_mma_smem<16>(a.use_rel), a, stream);
+    case 64:
+      return launch(flash_backward_mma_kernel<64>, kMmaThreads,
+                    backward_mma_smem<64>(a.use_rel), a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* e, const void* lse,
@@ -444,7 +500,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* e, const
 }  // namespace
 
 extern "C" int flash_attention_forward(
-    int bf16, int device, const void* q, const void* k, const void* v, const void* e,
+    int mma, int device, const void* q, const void* k, const void* v, const void* e,
     void* out, void* lse, const void* seed, int bh, int heads, int seq, int depth,
     int window, int use_rel, float scale, unsigned threshold, float keep_scale, int dropout,
     void* stream) {
@@ -454,11 +510,11 @@ extern "C" int flash_attention_forward(
                      threshold, keep_scale, dropout);
   a.out = out;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? forward<__nv_bfloat16>(depth, a, s) : forward<float>(depth, a, s);
+  return forward(mma, depth, a, s);
 }
 
 extern "C" int flash_attention_backward(
-    int bf16, int device, const void* q, const void* k, const void* v, const void* e,
+    int mma, int device, const void* q, const void* k, const void* v, const void* e,
     const void* dout, const void* lse, const void* delta, const void* seed, void* dq,
     void* dk, void* dv, void* de, int bh, int heads, int seq, int depth, int window,
     int use_rel, float scale, unsigned threshold, float keep_scale, int dropout,
@@ -474,5 +530,5 @@ extern "C" int flash_attention_backward(
   a.dv = dv;
   a.de = static_cast<float*>(de);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? backward<__nv_bfloat16>(depth, a, s) : backward<float>(depth, a, s);
+  return backward(mma, depth, a, s);
 }

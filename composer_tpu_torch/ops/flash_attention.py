@@ -7,6 +7,12 @@ replaced by the Hopper kernels of ``csrc/flash_attention.cu``; the file's
 header states what they compute and how. ``relative_flash_attention`` keeps
 the JAX signature and the ``[B, H, S, D]`` layout.
 
+Two routes, one fixed table (``kernel_variant``): bf16 at head_dim 16 and
+64 takes the tensor-core kernels (``csrc/flash_attention_mma.cuh``), the
+training path's type; float32 at head_dim 16 the scalar kernels, which the
+float32 parity tests and float32 training use. Every other (dtype,
+head_dim) raises.
+
 Beside the kernels, in this module:
 
 * ``flash_attention_reference`` / ``flash_attention_backward_reference``:
@@ -15,8 +21,8 @@ Beside the kernels, in this module:
   kernel and its plain version agree to summation order.
 * ``flash_attention_forward`` / ``flash_attention_backward``: the wrappers.
   A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-  (counted in ``flash_attention_forward.launches`` and
-  ``flash_attention_backward.launches``) or raises.
+  (counted by ``(route, head_dim)`` in ``flash_attention_forward.launches``
+  and ``flash_attention_backward.launches``) or raises.
 
 What the JAX module does for Mosaic and the port does not: padding head_dim
 to 128 lanes, the block-size policy, the per-row scalars padded to 8
@@ -35,7 +41,29 @@ from composer_tpu_torch.ops.philox import philox4x32_10
 
 NEG_INF = -1e30
 KERNEL_BLOCK = 64  # rows per tile in the kernels; S must be a multiple
-KERNEL_HEAD_DIMS = (16,)  # head_dim values the kernels are built for
+# (dtype, head_dim) -> the kernels built for it: "mma" the bf16 tensor-core
+# pair, "scalar" the float32 one.
+KERNEL_VARIANTS = {
+    (torch.bfloat16, 16): "mma",
+    (torch.bfloat16, 64): "mma",
+    (torch.float32, 16): "scalar",
+}
+
+
+def kernel_variant(dtype, depth: int) -> str:
+    """The route (``"mma"`` or ``"scalar"``) of the kernels that take
+    ``dtype`` at ``depth``; ``ValueError`` naming what is built for anything
+    else."""
+    route = KERNEL_VARIANTS.get((dtype, depth))
+    if route is None:
+        built = ", ".join(f"{str(d)[6:]} x {n}" for d, n in KERNEL_VARIANTS)
+        raise ValueError(f"the flash kernels are built for (dtype x head_dim) {built}, "
+                         f"not {str(dtype)[6:]} x head_dim {depth}")
+    return route
+
+
+# The keys of the wrappers' launch counts: (route, head_dim) of each kernel built.
+VARIANTS = tuple((route, depth) for (_, depth), route in KERNEL_VARIANTS.items())
 
 
 def runs_kernel(device) -> bool:
@@ -169,13 +197,10 @@ def flash_attention_backward_reference(q, k, v, rel_embedding, out, lse, dout, *
 
 
 def _kernel_args(q, rel_embedding, dropout_rate: float, dropout_seed):
-    """Checks what the kernel takes; returns ``(bf16, use_rel, seed tensor,
-    threshold, keep_scale, dropout flag)``."""
+    """Checks what the kernel takes; returns ``(variant, use_rel, seed
+    tensor, threshold, keep_scale, dropout flag)``."""
     batch, heads, seq, depth = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the flash kernel takes float32 or bfloat16, not {q.dtype}")
-    if depth not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel is built for head_dim {KERNEL_HEAD_DIMS}, not {depth}")
+    variant = (kernel_variant(q.dtype, depth), depth)
     if seq % KERNEL_BLOCK:
         raise ValueError(f"sequence {seq} is not a multiple of {KERNEL_BLOCK}")
     if batch * heads > 65535:
@@ -186,8 +211,7 @@ def _kernel_args(q, rel_embedding, dropout_rate: float, dropout_seed):
     if dropout_rate > 0.0:
         seed = torch.as_tensor(dropout_seed, dtype=torch.int32).reshape(1).to(q.device)
         threshold, keep_scale = dropout_constants(dropout_rate)
-    return (q.dtype == torch.bfloat16, rel_embedding is not None, seed, threshold,
-            keep_scale, dropout_rate > 0.0)
+    return variant, rel_embedding is not None, seed, threshold, keep_scale, dropout_rate > 0.0
 
 
 def _check_tensors(*tensors):
@@ -217,24 +241,24 @@ def flash_attention_forward(q, k, v, rel_embedding=None, *, scale: bool = True,
 
     _check_tensors(q, k, v, rel_embedding)
     batch, heads, seq, depth = q.shape
-    bf16, use_rel, seed, threshold, keep_scale, dropout = _kernel_args(
+    variant, use_rel, seed, threshold, keep_scale, dropout = _kernel_args(
         q, rel_embedding, dropout_rate, dropout_seed)
     out = torch.empty_like(q)
     lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
     err = load_library("flash_attention").flash_attention_forward(
-        int(bf16), q.device.index or 0, _ptr(q), _ptr(k), _ptr(v), _ptr(rel_embedding),
-        _ptr(out), _ptr(lse), _ptr(seed), batch * heads, heads, seq, depth,
+        int(variant[0] == "mma"), q.device.index or 0, _ptr(q), _ptr(k), _ptr(v),
+        _ptr(rel_embedding), _ptr(out), _ptr(lse), _ptr(seed), batch * heads, heads, seq, depth,
         rel_embedding.shape[1] if use_rel else 0, int(use_rel),
         depth ** -0.5 if scale else 1.0, threshold, keep_scale, int(dropout),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_forward failed to launch: cudaError {err}")
-    flash_attention_forward.launches += 1
+    flash_attention_forward.launches[variant] += 1
     return out, lse
 
 
-flash_attention_forward.launches = 0
+flash_attention_forward.launches = dict.fromkeys(VARIANTS, 0)
 
 
 def flash_attention_backward(q, k, v, rel_embedding, out, lse, dout, *, scale: bool = True,
@@ -249,7 +273,7 @@ def flash_attention_backward(q, k, v, rel_embedding, out, lse, dout, *, scale: b
 
     _check_tensors(q, k, v, rel_embedding, out, dout)
     batch, heads, seq, depth = q.shape
-    bf16, use_rel, seed, threshold, keep_scale, dropout = _kernel_args(
+    variant, use_rel, seed, threshold, keep_scale, dropout = _kernel_args(
         q, rel_embedding, dropout_rate, dropout_seed)
     lse = lse.to(torch.float32).contiguous()
     # delta = rowsum(dO * O) in float32 before the kernel, as _flash_bwd_rule.
@@ -259,20 +283,20 @@ def flash_attention_backward(q, k, v, rel_embedding, out, lse, dout, *, scale: b
     de = (torch.zeros(rel_embedding.shape, dtype=torch.float32, device=q.device)
           if use_rel else None)
     err = load_library("flash_attention").flash_attention_backward(
-        int(bf16), q.device.index or 0, _ptr(q), _ptr(k), _ptr(v), _ptr(rel_embedding),
-        _ptr(dout), _ptr(lse), _ptr(delta), _ptr(seed), _ptr(dq), _ptr(dk), _ptr(dv),
-        _ptr(de), batch * heads, heads, seq, depth,
+        int(variant[0] == "mma"), q.device.index or 0, _ptr(q), _ptr(k), _ptr(v),
+        _ptr(rel_embedding), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(seed), _ptr(dq),
+        _ptr(dk), _ptr(dv), _ptr(de), batch * heads, heads, seq, depth,
         rel_embedding.shape[1] if use_rel else 0, int(use_rel),
         depth ** -0.5 if scale else 1.0, threshold, keep_scale, int(dropout),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_backward failed to launch: cudaError {err}")
-    flash_attention_backward.launches += 1
+    flash_attention_backward.launches[variant] += 1
     return dq.to(q.dtype), dk, dv, de.to(rel_embedding.dtype) if use_rel else None
 
 
-flash_attention_backward.launches = 0
+flash_attention_backward.launches = dict.fromkeys(VARIANTS, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

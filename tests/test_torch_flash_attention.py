@@ -29,11 +29,13 @@ def _inputs(use_rel, B=1, H=2, S=256, D=16, W=512, seed=0):
     return q, k, v, e, cot
 
 
+@pytest.mark.parametrize("depth", [16, 64])
 @pytest.mark.parametrize("use_rel", [False, True])
-def test_flash_matches_jax_interpret_mode(use_rel):
+def test_flash_matches_jax_interpret_mode(use_rel, depth):
     """Forward and dq/dk/dv/dE against the JAX kernels (block 128: two
-    q-tiles, off-diagonal tiles and the in-place dQ/dE accumulation)."""
-    q, k, v, e, cot = _inputs(use_rel)
+    q-tiles, off-diagonal tiles and the in-place dQ/dE accumulation), at the
+    default model's head_dim and the flagship's."""
+    q, k, v, e, cot = _inputs(use_rel, D=depth)
 
     def loss(q, k, v, e):
         return jnp.sum(jax_flash(q, k, v, e, scale=True, block=128) * cot)
@@ -151,6 +153,26 @@ def test_routing_rule():
     assert not attention.takes_flash_path(*qk(256), use_pallas=True, q_position=3)
     assert fa.runs_kernel(torch.device("cuda")) and fa.runs_kernel("cuda:0")
     assert not fa.runs_kernel(torch.device("cpu"))
+
+
+def test_kernel_variant_table():
+    """The fixed routing table: bf16 at head_dim 16 and 64 takes the
+    tensor-core kernels, float32 at 16 the scalar ones, anything else
+    raises naming what is built."""
+    assert fa.kernel_variant(torch.bfloat16, 16) == "mma"
+    assert fa.kernel_variant(torch.bfloat16, 64) == "mma"
+    assert fa.kernel_variant(torch.float32, 16) == "scalar"
+    for dtype, depth in ((torch.bfloat16, 8), (torch.float32, 64), (torch.float16, 16),
+                         (torch.float16, 64), (torch.bfloat16, 128)):
+        with pytest.raises(ValueError, match="built for .*bfloat16 x 64.*float32 x 16"):
+            fa.kernel_variant(dtype, depth)
+    x = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16)
+    assert fa._kernel_args(x, None, 0.0, None)[0] == ("mma", 64)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        fa._kernel_args(x.float(), None, 0.0, None)
+    assert set(fa.VARIANTS) == {("mma", 16), ("mma", 64), ("scalar", 16)}
+    assert set(fa.flash_attention_forward.launches) == set(fa.VARIANTS)
+    assert set(fa.flash_attention_backward.launches) == set(fa.VARIANTS)
 
 
 @pytest.mark.parametrize("seq", [100, 128])
