@@ -13,8 +13,11 @@ Phases (any failure exits non-zero):
    from a numpy seed at the default model's widths. float32: greedy and
    sampled ids must be identical (both sides draw the same Philox noise) for
    batch 8 with relative attention off and on, batch 1, ragged prompts and a
-   prefill import, at 64 steps with cache 128, and again at the main path's
-   shapes (batch 8 x (10 + 1014) and batch 1, cache 1024); the last step's
+   prefill import, and batch 32 (a smaller cluster per sequence), at 64
+   steps with cache 128, and again at the main path's shapes (batch 8 x
+   (10 + 1014) and batch 1, cache 1024), where the kernel runs twice and
+   must give the same ids both times (a race between the blocks of a
+   cluster shows as ids that differ only sometimes); the last step's
    logits must agree within 1e-3. bfloat16: logits of a teacher-forced run
    must agree within 2% of their scale, and the sampled-id agreement rate is
    printed.
@@ -23,11 +26,14 @@ Phases (any failure exits non-zero):
    prompt encoded by the MIDI codec, batch 1 x 1024, a 100-event prompt that
    takes the parallel prefill, and batch 8 with relative attention on. The
    kernel's launch counters must rise, ids must lie in the vocabulary, and
-   a MIDI file is written. The device's busy share of a call is measured
-   with CUDA events around the call and around the kernel's launch. Then
-   kernel and plain version are timed at the same shapes; their ids are
-   compared, and the plain version's output, teacher-forced through both,
-   must give last-step logits within the bfloat16 rule.
+   a MIDI file is written; the cluster size the kernel took at B=8 and B=1
+   (``cluster_size``) is printed. The device's busy share of a call is
+   measured with CUDA events around the call and around the kernel's
+   launch. Then kernel and plain version are timed at the same shapes;
+   their ids are compared, and the plain version's output, teacher-forced
+   through both, must give last-step logits within the bfloat16 rule. The
+   kernel is also timed over 64 steps from position 0 and 64 from 960
+   (``steps_from_ms``): the weights' share of a step against attention's.
 
 4. The flash attention kernels (csrc/flash_attention.cu) against their
    plain PyTorch version, relative attention off and on, dropout 0 and 0.1
@@ -94,10 +100,11 @@ Phases (any failure exits non-zero):
    version and to one ``decode_generate`` launch. (b) bf16 at that shape:
    the kernel's ms per segment (CUDA events around each launch) against
    the plain version's and the bound, one ``decode_generate`` launch for
-   the same generation (the cost of segmenting), and the greedy ids'
-   agreement with it. (c) The service with the JAX ``serve`` defaults (8
-   slots, segments of 64, cache 2048, bf16) on the card: 16 requests of
-   10 + 1014 events submitted from 16 threads at once, 8 greedy and 8
+   the same generation (the cost of segmenting), the greedy ids'
+   agreement with it, and the cluster size. (c) The service with the JAX
+   ``serve`` defaults (8 slots, segments of 64, cache 2048, bf16) on the
+   card: 16 requests of 10 + 1014 events submitted from 16 threads at
+   once, 8 greedy and 8
    sampled with mixed top-k / top-p, so half wait for a slot. Every
    response must hold 1024 ids in the vocabulary, the kernel's launch count
    must rise, and each response's tokens, teacher-forced through the plain
@@ -158,9 +165,13 @@ Phases (any failure exits non-zero):
 
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
-H100 SXM's published peaks; the flash pair once for each (dtype,
-head_dim) built, told apart by ``variant``, ``dtype`` and ``head_dim``),
-then, as the last line, ``{"ok": true, "device": {...}}``.
+H100 SXM's published peaks, the resident decode kernels' bytes counting
+each step's weights and K/V prefixes again where they outgrow the 50 MB L2
+(``kv_bytes``); the flash pair once for each
+(dtype, head_dim) built, told apart by ``variant``, ``dtype`` and
+``head_dim``; ``cluster``, the blocks a sequence took, for the cluster
+kernels, else null), then, as the last line, ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py --flash-planted-faults
 
@@ -202,6 +213,7 @@ FLAGSHIP_TRAIN_STEPS, FLAGSHIP_TRAIN_WINDOW = 5, 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores, published
+L2_BYTES = 50 * 2**20  # H100 SXM's 50 MB L2, taken in MiB: the larger, so bounds stay lower
 
 
 def card_line() -> str:
@@ -255,8 +267,11 @@ def build_model(use_relative: bool, device):
 
 
 def run_both(packed, config, prompts, plens, temps, topk, topp, *, length, cache_len,
-             rows=(None, None), start_step=0, seed=0):
-    """(kernel ids, plain ids, max |logits difference| at the last step)."""
+             rows=(None, None), start_step=0, seed=0, kernel_runs=1):
+    """(kernel ids, plain ids, max |logits difference| at the last step).
+    With ``kernel_runs`` > 1 the kernel runs again on the same inputs and
+    must give the same ids each time (a race between the blocks of a
+    cluster shows as ids that differ only sometimes)."""
     from composer_tpu_torch.ops.decode_kernel_batched import (
         decode_generate,
         decode_generate_reference,
@@ -270,6 +285,9 @@ def run_both(packed, config, prompts, plens, temps, topk, topp, *, length, cache
     logits = [torch.zeros((prompts.shape[0], packed["wte"].shape[0]), device=device)
               for _ in range(2)]
     ours = decode_generate(*args, **kwargs, logits_out=logits[0])
+    for run in range(1, kernel_runs):
+        if not torch.equal(decode_generate(*args, **kwargs), ours):
+            raise AssertionError(f"the kernel's ids changed in run {run + 1} of one call")
     plain = decode_generate_reference(*args, **kwargs, logits_out=logits[1])
     torch.cuda.synchronize()
     return ours.cpu(), plain.cpu(), float((logits[0] - logits[1]).abs().max()), logits[1]
@@ -303,6 +321,13 @@ def kernel_vs_plain(device) -> dict:
         with torch.no_grad():
             _, cache = model(prompts[:, :5].long(), cache)
         rows = dk.cache_to_rows_batched(cache, config, 128, dtype=torch.float32)
+        rng32 = np.random.default_rng(3)
+        prompts32 = torch.as_tensor(rng32.integers(0, 390, (32, 9)), dtype=torch.int32,
+                                    device=device)
+        ragged32 = torch.as_tensor(rng32.integers(1, 10, 32), dtype=torch.int32, device=device)
+        sampled32 = vectors(32, rng32.choice([0.0, 0.8, 1.0, 1.2], 32).astype(np.float32),
+                            rng32.choice([0, 5, 40], 32),
+                            rng32.choice([0.0, 0.9], 32).astype(np.float32))
         cases = [
             ("B=8 greedy", prompts, full, greedy8, {}),
             ("B=8 sampled", prompts, full, sampled8, {"seed": 5}),
@@ -313,13 +338,19 @@ def kernel_vs_plain(device) -> dict:
              {"rows": rows, "start_step": 5, "seed": 7}),
             ("B=1 greedy", prompts[:1], full[:1], vectors(1, 0.0, 0, 0.0), {}),
             ("B=1 sampled", prompts[:1], full[:1], vectors(1, 1.0, 30, 0.9), {"seed": 8}),
+            # 32 sequences: a cluster of 4 blocks each (cluster_size).
+            ("B=32 greedy", prompts32, ragged32, vectors(32, 0.0, 0, 0.0), {}),
+            ("B=32 ragged sampled", prompts32, ragged32, sampled32, {"seed": 12}),
         ]
         # The main path's shapes: 10 prompt + 1014 generated, cache 1024.
         main = torch.as_tensor(np.random.default_rng(2).integers(0, 390, (8, PROMPT_EVENTS)),
                                dtype=torch.int32, device=device)
         main_plens = torch.full((8,), PROMPT_EVENTS, dtype=torch.int32, device=device)
+        # The main shapes' kernel runs twice: DSMEM races show as ids that
+        # differ only sometimes.
         cases = [(*case, 64, 128) for case in cases] + [
-            (f"{name} main shape", p, plens, vectors_, extra, GENERATE_EVENTS, 1024)
+            (f"{name} main shape", p, plens, vectors_, {**extra, "kernel_runs": 2},
+             GENERATE_EVENTS, 1024)
             for name, p, plens, vectors_, extra in (
                 ("B=8 greedy", main, main_plens, greedy8, {}),
                 ("B=8 sampled", main, main_plens, sampled8, {"seed": 10}),
@@ -452,7 +483,9 @@ def main_path(device, card: str) -> dict:
     decode_generate.launches_single = 0
     ids8, *_ = generate(model, batch8, GENERATE_EVENTS, seed=1)  # packs the weights
     ids8, wall8, window8, kernel8 = generate(model, batch8, GENERATE_EVENTS, seed=2)
+    clusters = {"batched": decode_generate.cluster}
     ids1, wall1, window1, kernel1 = generate(model, prompt, GENERATE_EVENTS, seed=3)
+    clusters["single"] = decode_generate.cluster
     engine = gen._packed_engine(model, None)
     original = engine._prefill_rows
     engine._prefill_rows = lambda *a: prefills.append(a[0].shape) or original(*a)
@@ -462,7 +495,9 @@ def main_path(device, card: str) -> dict:
                 "single": decode_generate.launches_single}
     _build.load_library = load_library
 
-    print(f"main path launches {launches}, prefill calls {prefills}", flush=True)
+    print(f"main path launches {launches}, prefill calls {prefills}; cluster size G "
+          f"(ops/decode_kernel_batched.py::cluster_size): B=8 {clusters['batched']}, "
+          f"B=1 {clusters['single']}", flush=True)
     if launches["batched"] < 4 or launches["single"] < 1:
         raise AssertionError(f"the main path did not run through the kernel: {launches}")
     if not prefills or prefills[0][1] != 64:
@@ -489,7 +524,7 @@ def main_path(device, card: str) -> dict:
         print(f"{name} generate_ids call: device window {window:.3f} ms (CUDA events), "
               f"kernel {kernel:.3f} ms, busy share {kernel / window:.5f} [{card}]",
               flush=True)
-    return {"launches": launches, "engine": engine, "prompt": prompt}
+    return {"launches": launches, "engine": engine, "prompt": prompt, "clusters": clusters}
 
 
 def timings(device, engine, prompt, card: str) -> dict:
@@ -544,7 +579,38 @@ def timings(device, engine, prompt, card: str) -> dict:
         if err > BF16_LOGIT_REL_TOL * scale:
             raise AssertionError(f"bf16 logits differ by {err} > {BF16_LOGIT_REL_TOL} x {scale}")
         result[form] = (kernel_ms, plain_ms)
+        steps_ms = {start: steps_from_ms(engine, batch, start, device) for start in (0, 960)}
+        print(f"B={batch} bf16, 64 steps (CUDA events, teacher-forced): from position 0 "
+              f"{steps_ms[0]:.3f} ms ({steps_ms[0] / 64 * 1e3:.1f} us a step), from 960 "
+              f"{steps_ms[960]:.3f} ms ({steps_ms[960] / 64 * 1e3:.1f} us a step); cluster size "
+              f"{decode_generate.cluster} [{card}]", flush=True)
+        result[f"{form} steps"] = steps_ms
     return result
+
+
+def steps_from_ms(engine, batch: int, start: int, device, steps: int = 64) -> float:
+    """``decode_generate``'s time for ``steps`` steps from position
+    ``start`` at the main path's cache (1024) in bf16, teacher-forced (the
+    step still samples), over a prefilled cache of random rows: at 0 the
+    weights take most of a step, at 960 the attention over the prefix
+    adds its share."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+
+    config = engine.config
+    width = start + steps
+    rng = np.random.default_rng(start + batch)
+    prompts = torch.as_tensor(rng.integers(0, config.vocab_size, (batch, width)),
+                              dtype=torch.int32, device=device)
+    plens = torch.full((batch,), width, dtype=torch.int32, device=device)
+    temps, topk, topp = dk.row_params(batch, 512, 1.0, 0, 0.0, False, False, False, device)
+    shape = (config.num_layers, batch * 1024, config.embed_dim)
+    rows = [torch.randn(shape, device=device).mul_(0.5).to(torch.bfloat16) for _ in range(2)]
+    if not start:
+        rows = [None, None]
+    kwargs = dict(config=config, num_steps=width, out_len=1, cache_len=1024, start_step=start)
+    return cuda_ms(lambda: decode_generate(engine.packed, prompts, plens, 0, temps, topk, topp,
+                                           *rows, **kwargs), 5)
 
 
 def bound(byte_count: float, flops: float, flops_per_s: float = BF16_FLOPS):
@@ -555,20 +621,49 @@ def bound(byte_count: float, flops: float, flops_per_s: float = BF16_FLOPS):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
+def kv_bytes(packed, config, prefix_rows, band_rows, written: int) -> int:
+    """HBM bytes of the resident kernels beyond the packed weights' one read:
+    each K/V row written once (``written`` rows in every layer) and, at each
+    step, the part of that step's working set that the L2 cannot hold read
+    again. ``prefix_rows[i]`` and ``band_rows[i]`` are the K/V rows (the
+    prefixes [0, pos] of every active sequence) and the relative band's rows
+    that step i reads in every layer; its working set is those and the
+    packed weights. A step that reads W bytes which the step before also
+    read must fetch at least W - ``L2_BYTES`` of them from HBM, whatever
+    the cache keeps (the weights are reread through the L2 every step, as
+    the resident kernels do). Where the working set fits (B=1, the
+    speculative kernel), the K/V rows cost their one write and nothing
+    more; at B=8 the cache outgrows the L2 beside the weights from about
+    position 600."""
+    E, L = config.embed_dim, config.num_layers
+    row = L * 2 * E * packed["wte"].element_size()
+    band_row = L * E * packed["rel_rows"].element_size() if config.use_relative_attention else 0
+    table = packed["rel_rows"].numel() * packed["rel_rows"].element_size()
+    weights = sum(t.numel() * t.element_size() for t in packed.values()) - table
+    working = (weights + np.asarray(prefix_rows, np.int64) * row
+               + np.asarray(band_rows, np.int64) * band_row)
+    return written * row + int(np.maximum(working - L2_BYTES, 0).sum())
+
+
 def decode_bound(engine, batch: int, num_steps: int):
     """One generation call: the packed weights and prompts read once, the
-    ids written once; per step and sequence the layer GEMVs (24 E^2 per
+    ids written once; per step, layer and sequence its K/V prefix [0, pos]
+    read again where the L2 cannot hold it beside the weights, and its K/V
+    row written (``kv_bytes``); per step and sequence the layer GEMVs (24 E^2 per
     layer), attention over the grown prefix (4 or, with the relative band,
     6 x keys x E per layer) and the tied logits."""
     config = engine.config
-    E, L = config.embed_dim, config.num_layers
+    E, L, W = config.embed_dim, config.num_layers, config.window_size
     weights = sum(t.numel() * t.element_size() for t in engine.packed.values())
     ids = batch * (PROMPT_EVENTS + num_steps + 1) * 4
     per_key = 6 if config.use_relative_attention else 4
-    keys = num_steps * (num_steps + 1) // 2  # sum over steps of (position + 1)
+    steps = np.arange(num_steps)
+    keys = int((steps + 1).sum())  # sum over steps of (position + 1)
     flops = batch * (num_steps * (L * 24 * E * E + 2 * E * config.vocab_size)
                      + L * per_key * E * keys)
-    return bound(weights + ids, flops)
+    kv = kv_bytes(engine.packed, config, batch * (steps + 1), np.minimum(steps + 1, W),
+                  batch * num_steps)
+    return bound(weights + ids + kv, flops)
 
 
 def flash_bound(shape, use_rel: bool, backward: bool, dtype=torch.bfloat16):
@@ -1179,9 +1274,11 @@ def spec_block_starts(prompt, tokens, block: int) -> list:
 def spec_bound(engine, prompt, tokens, blocks: int, block: int):
     """One speculative call: the packed weights, prompt, ids and stats moved
     once; per verified row (blocks x T, counted by replaying the run) the
-    layer GEMVs and tied logits, and attention over keys [0, position]."""
+    layer GEMVs and tied logits, attention over keys [0, position], and, as
+    ``decode_bound`` counts them, its K/V row written in every layer and,
+    once a block, the block's working set beyond the L2 (``kv_bytes``)."""
     config = engine.config
-    E, L = config.embed_dim, config.num_layers
+    E, L, W = config.embed_dim, config.num_layers, config.window_size
     starts = spec_block_starts(prompt, tokens, block)
     if len(starts) != blocks:
         raise AssertionError(f"replayed {len(starts)} blocks, the kernel ran {blocks}")
@@ -1189,9 +1286,11 @@ def spec_bound(engine, prompt, tokens, blocks: int, block: int):
     ids = (len(prompt) + len(tokens) + 8) * 4
     per_key = 6 if config.use_relative_attention else 4
     keys = sum(block * p0 + block * (block + 1) // 2 for p0 in starts)
+    ends = np.asarray(starts, np.int64) + block
     flops = (blocks * block * (L * 24 * E * E + 2 * E * config.vocab_size)
              + L * per_key * E * keys)
-    return bound(weights + ids, flops)
+    kv = kv_bytes(engine.packed, config, ends, np.minimum(ends, W), blocks * block)
+    return bound(weights + ids + kv, flops)
 
 
 def spec_bf16_check(name, packed, config, prompt, tokens) -> float:
@@ -1435,25 +1534,29 @@ def segment_vs_plain(device) -> int:
 
 def segment_bound(packed, config, starts, step0: int, steps: int, live: int):
     """One segment: the packed weights, the prompts, per-row inputs and ids
-    moved once, and each active row's K/V rows [0, its last position]
-    (read or written once); per step and active row the layer GEMVs, the
-    tied logits and attention over its keys."""
-    E, L = config.embed_dim, config.num_layers
+    moved once; per step and active row its K/V row written (while pos <
+    live) in every layer, and the step's working set beyond the L2: the
+    weights, the K/V prefixes [0, min(pos, live-1)] of the active rows and
+    the band rows they reach (``kv_bytes``); per step and active row the
+    layer GEMVs, the tied logits and attention over its keys."""
+    E, L, W = config.embed_dim, config.num_layers, config.window_size
     weights = sum(t.numel() * t.element_size() for t in packed.values())
-    kv_row = 2 * L * E * packed["wte"].element_size()
     per_key = 6 if config.use_relative_attention else 4
-    flops, kv_rows = 0, 0
-    for start in starts:
-        last = step0 + steps - 1 - int(start)
-        if last < 0:
+    flops, prefix_rows, band_rows, written = 0, [], [], 0
+    for i in range(step0, step0 + steps):
+        pos = i - starts[starts != 2**30].astype(np.int64)
+        pos = pos[pos >= 0]
+        if not len(pos):
             continue
-        positions = np.arange(max(step0 - int(start), 0), last + 1)
-        keys = np.minimum(positions, live - 1) + 1
-        flops += len(positions) * (L * 24 * E * E + 2 * E * config.vocab_size)
+        keys = np.minimum(pos, live - 1) + 1
+        prefix_rows.append(int(keys.sum()))
+        band_rows.append(min(int(keys.max()), W))
+        written += int((pos < live).sum())
+        flops += len(pos) * (L * 24 * E * E + 2 * E * config.vocab_size)
         flops += L * per_key * E * int(keys.sum())
-        kv_rows += min(last + 1, live)
+    kv = kv_bytes(packed, config, prefix_rows, band_rows, written)
     ids = len(starts) * (PROMPT_EVENTS + steps + 8) * 4
-    return bound(weights + ids + kv_rows * kv_row, flops)
+    return bound(weights + ids + kv, flops)
 
 
 def segment_timings(device, card: str) -> dict:
@@ -1464,6 +1567,7 @@ def segment_timings(device, card: str) -> dict:
     from composer_tpu_torch.ops import _build
     from composer_tpu_torch.ops import decode_kernel as dk
     from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+    from composer_tpu_torch.ops.decode_kernel_segmented import decode_segment
 
     model, _ = build_model(False, device)
     config = model.config
@@ -1486,6 +1590,7 @@ def segment_timings(device, card: str) -> dict:
     torch.cuda.synchronize()
     per_segment = [begin.elapsed_time(end) for begin, end in spans.spans]
     kernel_ms = float(np.mean(per_segment))
+    cluster = decode_segment.cluster
     start = time.perf_counter()
     plain, _ = segment_stream(*args, cache_len=SERVE_CACHE, plain=True)
     plain_ms = (time.perf_counter() - start) * 1e3 / 16
@@ -1508,7 +1613,8 @@ def segment_timings(device, card: str) -> dict:
     print(f"segment kernel bf16, 8 live rows x {SEGMENT_STEPS} steps, cache {SERVE_CACHE}: "
           f"{kernel_ms:.3f} ms per segment (mean of {len(per_segment)} over two runs; first "
           f"segment {per_segment[half]:.3f} ms, last {per_segment[-1]:.3f} ms; "
-          f"{kernel_ms / SEGMENT_STEPS * 1e3:.1f} us per step); plain version "
+          f"{kernel_ms / SEGMENT_STEPS * 1e3:.1f} us per step; cluster size {cluster}); "
+          f"plain version "
           f"{plain_ms:.2f} ms per segment (ids agreement {agree_plain:.4f}); bound "
           f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
     print(f"8 x {GENERATE_EVENTS} bf16 greedy: 16 segments {16 * kernel_ms:.2f} ms against one "
@@ -1516,7 +1622,7 @@ def segment_timings(device, card: str) -> dict:
           f"{16 * kernel_ms / fused_ms:.4f}x); ids agreement with decode_generate {agree:.4f} "
           f"[{card}]", flush=True)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "fused_ms": fused_ms, "agree": agree}
+            "fused_ms": fused_ms, "agree": agree, "cluster": cluster}
 
 
 def gumbel_rows(seed: int, slot: int, steps, vpad: int, device):
@@ -2478,7 +2584,8 @@ def main() -> int:
             "name": f"decode_generate ({'B>1' if batch > 1 else 'B=1'})", "route": "cuda",
             "source": source, "replaces": replaces, "launches": path["launches"][form],
             "max_abs_err": errors[form], "ms": times[form][0], "plain_ms": times[form][1],
-            "bound_ms": ms, "bound_by": by, "library_ms": None})
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "cluster": path["clusters"][form]})
     flash_launches = {("mma", 16): training["launches"][("mma", 16)],
                       ("mma", 64): flagship_training["launches"],
                       ("scalar", 16): training["launches"][("scalar", 16)]}
@@ -2503,26 +2610,28 @@ def main() -> int:
                 "row_rel_err": check.get("row_rel_err"), "ms": times[direction],
                 "plain_ms": times[f"plain_{direction}"], "bound_ms": times[f"bound_{direction}"],
                 "bound_by": times[f"bound_by_{direction}"],
-                "library_ms": times[f"sdpa_{direction}"]})
+                "library_ms": times[f"sdpa_{direction}"], "cluster": None})
     kernels.append({
         "name": "spec_decode (B=1)", "route": "cuda",
         "source": "composer_tpu_torch/csrc/spec_decode.cu",
         "replaces": "composer_tpu/ops/decode_kernel_spec.py:120", "launches": spec["launches"],
         "max_abs_err": spec_error, "ms": spec["ms"], "plain_ms": spec["plain_ms"],
-        "bound_ms": spec["bound_ms"], "bound_by": spec["bound_by"], "library_ms": None})
+        "bound_ms": spec["bound_ms"], "bound_by": spec["bound_by"], "library_ms": None,
+        "cluster": None})
     kernels.append({
         "name": "decode_segment", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_segment.cu",
         "replaces": "composer_tpu/ops/decode_kernel_segmented.py:62",
         "launches": serve["launches"], "max_abs_err": segment_error, "ms": segment["ms"],
         "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
-        "bound_by": segment["bound_by"], "library_ms": None})
+        "bound_by": segment["bound_by"], "library_ms": None, "cluster": segment["cluster"]})
     wide_bound_ms, wide_bound_by = wide[8]["bound bf16"]
     kernels.append({
         "name": "decode_wide", "route": "cuda", "source": "composer_tpu_torch/csrc/decode_wide.cu",
         "replaces": "composer_tpu/ops/decode_kernel_wide.py:153", "launches": wide_path["launches"],
         "max_abs_err": wide_error, "ms": wide[8]["bf16"], "plain_ms": wide[8]["plain_ms"],
-        "bound_ms": wide_bound_ms, "bound_by": wide_bound_by, "library_ms": None})
+        "bound_ms": wide_bound_ms, "bound_by": wide_bound_by, "library_ms": None,
+        "cluster": None})
     kernels.append({
         "name": "decode_segment_wide", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_wide_segment.cu",
@@ -2530,7 +2639,7 @@ def main() -> int:
         "launches": wide_serve["launches"], "max_abs_err": wide_segment_error,
         "ms": wide_segment["ms"], "plain_ms": wide_segment["plain_ms"],
         "bound_ms": wide_segment["bound_ms"], "bound_by": wide_segment["bound_by"],
-        "library_ms": None})
+        "library_ms": None, "cluster": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
-// Device helpers shared by the decode kernels (decode_generate.cu,
-// decode_segment.cu and spec_decode.cu): block reductions, vector loads, the
-// bf16/f32 conversions, tanh-GELU, LayerNorm, the Philox4x32-10 Gumbel noise,
-// the sampling of one row of logits, and decode_step, the one-token step
-// body that decode_generate and decode_segment both run. All kernels draw the
-// same bits from one definition, so the speculative and segmented kernels'
-// samples equal the sequential kernel's.
+// Device helpers shared by the decode kernels (decode_cluster.cuh, whose step
+// body decode_generate.cu and decode_segment.cu run, spec_decode.cu and the
+// wide kernels): block reductions, vector loads, the bf16/f32 conversions,
+// tanh-GELU, LayerNorm, the Philox4x32-10 Gumbel noise and the sampling of
+// one row of logits. All kernels draw the same bits from one definition, so
+// the speculative, segmented and wide kernels' samples equal the sequential
+// kernel's.
 //
 // Every block that uses these runs kThreads threads.
 
@@ -282,266 +282,6 @@ __device__ inline int sample_row(const float* logits, float* scaled, float* scor
   }
   __syncthreads();
   return block_argmax(scored, V, red);
-}
-
-// Split-K partial sums of gemv: at most kThreads threads x 8 columns each.
-constexpr int kPartial = kThreads * 8;
-
-// y[j] = sum_i x[i] * w[i, j] for a row-major (K, N) weight, N a multiple of
-// Vec<T>::N. x lives in shared memory (already rounded to T). Each thread
-// owns Vec<T>::N adjacent columns and a slice of K; the slices' partial sums
-// are added in a fixed order.
-template <typename T>
-__device__ void gemv(const float* x, const T* __restrict__ w, int K, int N, float* y,
-                     float* partial) {
-  constexpr int VN = Vec<T>::N;
-  const int tid = threadIdx.x, groups = N / VN;
-  const int splits = groups >= kThreads ? 1 : kThreads / groups;
-  for (int t = tid; t < splits * groups; t += kThreads) {
-    const int g = t % groups, part = t / groups;
-    const int k0 = part * K / splits, k1 = (part + 1) * K / splits;
-    float acc[VN] = {};
-    const T* col = w + g * VN;
-#pragma unroll 8
-    for (int i = k0; i < k1; ++i) {
-      float v[VN];
-      Vec<T>::load(col + (size_t)i * N, v);
-#pragma unroll
-      for (int c = 0; c < VN; ++c) acc[c] = fmaf(x[i], v[c], acc[c]);
-    }
-    float* out = splits == 1 ? y : partial + part * N;
-#pragma unroll
-    for (int c = 0; c < VN; ++c) out[g * VN + c] = acc[c];
-  }
-  __syncthreads();
-  if (splits == 1) return;
-  for (int j = tid; j < N; j += kThreads) {
-    float acc = 0.f;
-    for (int p = 0; p < splits; ++p) acc += partial[p * N + j];
-    y[j] = acc;
-  }
-  __syncthreads();
-}
-
-// The packed weights (ops/decode_kernel.py::pack_weights) and the model's
-// widths, as decode_step reads them.
-template <typename T>
-struct Model {
-  const T* wte;        // (Vpad, E)
-  const T* wte_t;      // (E, Vpad), ln_f scale folded in
-  const T* wpe;        // (W, E)
-  const float* ln1;    // (L, 2, E)
-  const T* qkv_w;      // (L, E, 3E)
-  const float* qkv_b;  // (L, 3E)
-  const T* proj_w;     // (L, E, E)
-  const float* proj_b; // (L, E)
-  const T* fc_w;       // (L, E, 4E), ln_2 scale folded in
-  const float* fc_b;   // (L, 4E)
-  const T* fp_w;       // (L, 4E, E)
-  const float* fp_b;   // (L, E)
-  const float* logits_b;  // (Vpad,): ln_f beta, NEG_INF on padding lanes
-  const T* rel;        // (L, W, E) relative table in cache-row layout
-  int layers, heads, head_dim, embed, window, vocab_pad, use_rel;
-  float softmax_scale, eps;
-};
-
-// Floats of shared scratch that decode_step uses for a score row of `keys`
-// slots per head; kernel_smem_bytes() in ops/decode_kernel_batched.py
-// mirrors it.
-__host__ __device__ inline size_t step_smem_floats(int E, int H, int keys, int V) {
-  return 64 + 11 * (size_t)E + 4 * (size_t)V + (size_t)H * keys + kPartial;
-}
-
-// The scratch buffers of decode_step, carved out of a block's dynamic
-// shared memory in step_smem_floats()'s layout.
-struct StepScratch {
-  float* red;      // 64 floats (also 16 doubles)
-  float* h;        // residual stream
-  float* x1;       // ln_1 output
-  float* xw;       // matmul operand rounded to T
-  float* act;
-  float* qkv;      // 3E
-  float* hid;      // 4E
-  float* logits;   // V
-  float* scaled;   // V
-  float* scored;   // V
-  float* expv;     // V
-  float* scores;   // H * keys
-  float* partial;  // kPartial
-  int keys;        // score row stride: the most slots a step attends to
-
-  __device__ StepScratch(float* smem, int E, int H, int keys_, int V) : keys(keys_) {
-    red = smem;
-    h = red + 64;
-    x1 = h + E;
-    xw = x1 + E;
-    act = xw + E;
-    qkv = act + E;
-    hid = qkv + 3 * E;
-    logits = hid + 4 * E;
-    scaled = logits + V;
-    scored = scaled + V;
-    expv = scored + V;
-    scores = expv + V;
-    partial = scores + H * keys;
-  }
-};
-
-// One token of one sequence through the model, then its sample: embedding
-// (wte[token] + wpe[min(pos, W-1)]), the pre-LN layers with the KV append
-// and attention over cache slots [0, key_pos] (with the relative bias of
-// distance key_pos - j), tied logits, then sample_row with Philox counter
-// (step, row). The K/V of this token go to slot key_pos of krows / vrows
-// (the sequence's rows of layer 0; layer l's are layer_stride elements on)
-// when `write`; otherwise nothing is written. logits_out, when not null,
-// receives the logits. Every thread returns the same token.
-//
-// m and sc are taken by value: with references to the kernel's parameter
-// struct, ptxas held the bf16 kernels at 64 registers, and decode_generate
-// took 1.38x (B=8) and 1.17x (B=1) the time it takes by value (PERF.md).
-template <typename T>
-__device__ __forceinline__ int decode_step(const Model<T> m, const StepScratch sc, int token,
-                                           int pos, int key_pos, bool write, T* krows0,
-                                           T* vrows0, size_t layer_stride, float temp,
-                                           float topk, float topp, unsigned seed,
-                                           unsigned step, unsigned row, float* logits_out) {
-  const int E = m.embed, H = m.heads, D = m.head_dim, V = m.vocab_pad, Wn = m.window;
-  const int C = sc.keys;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* const red = sc.red;
-  float* const h = sc.h;
-  float* const x1 = sc.x1;
-  float* const xw = sc.xw;
-  float* const act = sc.act;
-  float* const qkv = sc.qkv;
-  float* const hid = sc.hid;
-  float* const logits = sc.logits;
-  float* const scores = sc.scores;
-  float* const partial = sc.partial;
-
-  const int prow = pos < Wn - 1 ? pos : Wn - 1;
-  for (int e = tid; e < E; e += kThreads)
-    h[e] = to_f(m.wte[(size_t)token * E + e]) + to_f(m.wpe[(size_t)prow * E + e]);
-  __syncthreads();
-
-  for (int layer = 0; layer < m.layers; ++layer) {
-    const float* ln1 = m.ln1 + (size_t)layer * 2 * E;
-    layer_norm<T>(h, x1, xw, E, m.eps, ln1, ln1 + E, red);
-
-    gemv<T>(xw, m.qkv_w + (size_t)layer * E * 3 * E, E, 3 * E, qkv, partial);
-    const float* qkv_b = m.qkv_b + (size_t)layer * 3 * E;
-    T* krows = krows0 + layer * layer_stride;
-    T* vrows = vrows0 + layer * layer_stride;
-    for (int e = tid; e < 3 * E; e += kThreads) {
-      const float v = qkv[e] + qkv_b[e];
-      if (e < E) xw[e] = round_to<T>(v);  // q in the KV type
-      else if (!write) continue;
-      else if (e < 2 * E) krows[(size_t)key_pos * E + (e - E)] = from_f<T>(v);
-      else vrows[(size_t)key_pos * E + (e - 2 * E)] = from_f<T>(v);
-    }
-    __syncthreads();
-
-    // Scores for slots [0, key_pos]: one (head, slot) pair per thread, slots
-    // of one head on adjacent threads.
-    const int n = key_pos + 1;
-    const T* rel = m.rel + (size_t)layer * Wn * E;
-#pragma unroll 4
-    for (int idx = tid; idx < H * n; idx += kThreads) {
-      const int hh = idx / n, j = idx - hh * n;
-      const float* qh = xw + hh * D;
-      float acc = head_dot<T>(qh, krows + (size_t)j * E + hh * D, D);
-      if (m.use_rel) {
-        // Slot j is at distance key_pos - j: E row window-1-(key_pos-j);
-        // rows outside the table give no bias. Added before scaling.
-        const int r = Wn - 1 - (key_pos - j);
-        if (r >= 0) acc += head_dot<T>(qh, rel + (size_t)r * E + hh * D, D);
-      }
-      scores[hh * C + j] = acc * m.softmax_scale;
-    }
-    __syncthreads();
-
-    // Softmax per head, one warp per head; weights rounded to T.
-    for (int hh = warp; hh < H; hh += kWarps) {
-      float* srow = scores + hh * C;
-      float mx = -CUDART_INF_F;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, srow[j]);
-      for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float p = expf(srow[j] - mx);
-        srow[j] = p;
-        sum += p;
-      }
-      for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      for (int j = lane; j < n; j += 32) srow[j] = round_to<T>(srow[j] / sum);
-    }
-    __syncthreads();
-
-    // attn[e] = sum_j w[head(e), j] * V[j, e]: each thread owns Vec<T>::N
-    // adjacent lanes (one head) and a slice of the slots.
-    {
-      constexpr int VN = Vec<T>::N;
-      const int groups = E / VN;
-      const int splits = groups >= kThreads ? 1 : kThreads / groups;
-      for (int t = tid; t < splits * groups; t += kThreads) {
-        const int g = t % groups, part = t / groups;
-        const int j0 = part * n / splits, j1 = (part + 1) * n / splits;
-        const float* w = scores + (g * VN / D) * C;
-        float acc[VN] = {};
-#pragma unroll 8
-        for (int j = j0; j < j1; ++j) {
-          float v[VN];
-          Vec<T>::load(vrows + (size_t)j * E + g * VN, v);
-#pragma unroll
-          for (int c = 0; c < VN; ++c) acc[c] = fmaf(w[j], v[c], acc[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < VN; ++c) {
-          if (splits == 1) xw[g * VN + c] = round_to<T>(acc[c]);
-          else partial[part * E + g * VN + c] = acc[c];
-        }
-      }
-      __syncthreads();
-      if (splits > 1) {
-        for (int e = tid; e < E; e += kThreads) {
-          float acc = 0.f;
-          for (int p = 0; p < splits; ++p) acc += partial[p * E + e];
-          xw[e] = round_to<T>(acc);
-        }
-        __syncthreads();
-      }
-    }
-
-    gemv<T>(xw, m.proj_w + (size_t)layer * E * E, E, E, act, partial);
-    const float* proj_b = m.proj_b + (size_t)layer * E;
-    for (int e = tid; e < E; e += kThreads) h[e] = x1[e] + (act[e] + proj_b[e]);  // x2
-    __syncthreads();
-
-    layer_norm<T>(h, nullptr, xw, E, m.eps, nullptr, nullptr, red);
-    gemv<T>(xw, m.fc_w + (size_t)layer * E * 4 * E, E, 4 * E, hid, partial);
-    const float* fc_b = m.fc_b + (size_t)layer * 4 * E;
-    for (int j = tid; j < 4 * E; j += kThreads) {
-      const float x = hid[j] + fc_b[j];
-      hid[j] = round_to<T>(gelu_tanh(x));
-    }
-    __syncthreads();
-    gemv<T>(hid, m.fp_w + (size_t)layer * 4 * E * E, 4 * E, E, act, partial);
-    const float* fp_b = m.fp_b + (size_t)layer * E;
-    for (int e = tid; e < E; e += kThreads) h[e] = (h[e] + act[e]) + fp_b[e];
-    __syncthreads();
-  }
-
-  // Tied logits: standardize(h) @ wte_t + logits_b.
-  layer_norm<T>(h, nullptr, xw, E, m.eps, nullptr, nullptr, red);
-  gemv<T>(xw, m.wte_t, E, V, logits, partial);
-  for (int v = tid; v < V; v += kThreads) {
-    logits[v] += m.logits_b[v];
-    if (logits_out != nullptr) logits_out[v] = logits[v];
-  }
-  __syncthreads();
-
-  return sample_row(logits, sc.scaled, sc.scored, sc.expv, V, temp, topk, topp, seed, step, row,
-                    red);
 }
 
 }  // namespace decode_common

@@ -6,28 +6,45 @@
 // (_decode_kernel, B = 1). Same contract as the plain PyTorch version
 // composer_tpu_torch/ops/decode_kernel_batched.py::decode_generate_reference.
 //
-// One thread block per sequence; the block loops over every step, and each
-// step runs decode_step (decode_common.cuh, shared with decode_segment.cu):
-// embedding, pre-LN layers (ln_2 and ln_f folded into the weights at pack
-// time), KV append, attention with the Music-Transformer relative bias,
-// tied logits, temperature, top-k / top-p, Gumbel-max with a counter-based
-// Philox4x32-10; the kernel feeds the token back. Weights are read from L2
-// every step (about 12.6 MB per block per step in bf16 for the default
-// model); only B of the 132 SMs are busy. The H x C float32 scores live in shared memory,
-// which bounds the cache length (ops/decode_kernel_batched.py::kernel_fits).
+// Design: one thread-block cluster per sequence, G blocks of 512 threads on
+// G SMs of one GPC (G = ops/decode_kernel_batched.py::cluster_size: the
+// largest power of two <= 16 that divides H, with batch x G <= the SM count
+// and every cluster resident at once; 1 past 66 sequences, the one-block
+// layout in the same code). It replaced one block per sequence, which read
+// all weights (12.6 MB of bf16 for the default model) through one SM each
+// step while only B of the 132 SMs worked. The cluster loops over every
+// step, and each step runs cluster_step (decode_cluster.cuh, shared with
+// decode_segment.cu): embedding, pre-LN layers (ln_2 and ln_f folded into
+// the weights at pack time), KV append, attention with the Music-Transformer
+// relative bias, tied logits, temperature, top-k / top-p, Gumbel-max with a
+// counter-based Philox4x32-10; each block owns H/G heads and a 1/G slice of
+// every matmul's columns, and the blocks exchange activations through
+// distributed shared memory at four cluster barriers a layer and one a
+// step. Every
+// block samples the same token and feeds it back; rank 0 writes the ids.
+//
+// What bounds it on the H100: each cluster reads the weights from L2 every
+// step, 12.6/G MB per block, and each row's K/V prefix from HBM; at B = 8 the
+// clusters' weight reads meet the L2's bandwidth, at B = 1 the step's latency
+// chain (barriers and L2 round trips) holds it. The (H/G) x C float32 scores
+// live in shared memory; caches are admitted by the one-block layout's
+// budget (ops/decode_kernel_batched.py::kernel_fits), which every G fits.
 //
 // Numerics: matmul operands are rounded to the weight type T and accumulated
 // in float32; q is rounded to the KV type (T) before the scores, the softmax
 // weights to T before the AV product. The nucleus mass is summed in double.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// C entry point: decode_generate(...), returns cudaGetLastError() after launch.
+// C entry points: decode_generate(...), returns the launch's cudaError_t;
+// decode_generate_clusters(...), the clusters of G blocks that can be resident
+// at once (cudaOccupancyMaxActiveClusters).
 
-#include "decode_common.cuh"
+#include "decode_cluster.cuh"
 
 namespace {
 
 using namespace decode_common;
+using namespace decode_cluster;
 
 // Static shared memory (s_token) beside the dynamic buffer; both count
 // against kMaxSharedBytes (STATIC_SHARED_BYTES in decode_kernel_batched.py).
@@ -50,13 +67,16 @@ struct Args {
   unsigned seed;
 };
 
-template <typename T>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads) decode_generate_kernel(const Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_token;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
   const int E = a.m.embed, C = a.cache_len, V = a.m.vocab_pad;
-  const int s = blockIdx.x, tid = threadIdx.x;
-  const StepScratch scratch(smem, E, a.m.heads, C, V);
+  const int s = blockIdx.x / G, tid = threadIdx.x;
+  const bool rank0 = cluster.block_rank() == 0;
+  const ClusterScratch scratch(smem, E, a.m.heads / G, C, V);
   T* krows = a.kcache + (size_t)s * C * E;
   T* vrows = a.vcache + (size_t)s * C * E;
   const size_t layer_stride = (size_t)a.batch * C * E;
@@ -65,34 +85,36 @@ __global__ void __launch_bounds__(kThreads) decode_generate_kernel(const Args<T>
   const int plen = a.plens[s];
   const float topk = a.topk[s], topp = a.topp[s];
   if (tid == 0) s_token = a.prompts[s * a.prompt_width + a.start_step];
-  __syncthreads();
+  // Every block of the cluster runs before any block writes into its
+  // shared memory.
+  cluster.sync();
 
   for (int pos = a.start_step; pos < a.num_steps; ++pos) {
     float* logits_out = a.logits_out != nullptr && pos == a.num_steps - 1
                             ? a.logits_out + (size_t)s * V : nullptr;
-    const int next = decode_step<T>(a.m, scratch, s_token, pos, pos, true, krows, vrows,
-                                    layer_stride, temp, topk, topp, a.seed, (unsigned)pos,
-                                    (unsigned)s, logits_out);
+    const int next = cluster_step<T, kWide>(a.m, scratch, s_token, pos, pos, true, krows,
+                                            vrows, layer_stride, temp, topk, topp, a.seed,
+                                            (unsigned)pos, (unsigned)s, logits_out);
     if (tid == 0) {
       const int col = pos - plen + 1;
-      if (col >= 0 && col < a.out_len) a.tokens[(size_t)s * a.out_len + col] = next;
+      if (rank0 && col >= 0 && col < a.out_len) a.tokens[(size_t)s * a.out_len + col] = next;
       s_token = pos + 1 < plen ? a.prompts[s * a.prompt_width + pos + 1] : next;
     }
     __syncthreads();
   }
+  // No block leaves while a peer may still write into its shared memory.
+  cluster.sync();
 }
 
 template <typename T>
-int launch(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * step_smem_floats(a.m.embed, a.m.heads, a.cache_len,
-                                                       a.m.vocab_pad);
-  if (smem + kStaticSharedBytes > (size_t)kMaxSharedBytes || a.m.head_dim % 8 != 0)
+int launch(const Args<T>& a, int cluster, cudaStream_t stream) {
+  if (!cluster_takes(cluster, a.m.embed, a.m.heads, a.m.head_dim, a.cache_len, a.m.vocab_pad,
+                     kStaticSharedBytes))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_generate_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_generate_kernel<T><<<a.batch, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  return cluster_launch(wide_units<T>(cluster, a.m.embed) ? decode_generate_kernel<T, true>
+                                                           : decode_generate_kernel<T, false>,
+                        cluster, a.batch, a.m.embed, a.m.heads,
+                        a.cache_len, a.m.vocab_pad, stream, a);
 }
 
 template <typename T>
@@ -104,7 +126,7 @@ int run(int device, const void* wte, const void* wte_t, const void* wpe, const v
         const void* topp, void* tokens, void* logits_out, int batch, int prompt_width,
         int layers, int heads, int head_dim, int embed, int cache_len, int window,
         int vocab_pad, int num_steps, int start_step, int out_len, int use_rel,
-        unsigned seed, float softmax_scale, float eps, void* stream) {
+        unsigned seed, float softmax_scale, float eps, int cluster, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args<T> a;
@@ -133,7 +155,7 @@ int run(int device, const void* wte, const void* wte_t, const void* wpe, const v
   a.start_step = start_step;
   a.out_len = out_len;
   a.seed = seed;
-  return launch<T>(a, static_cast<cudaStream_t>(stream));
+  return launch<T>(a, cluster, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -147,11 +169,27 @@ extern "C" int decode_generate(
     const void* topp, void* tokens, void* logits_out, int batch, int prompt_width,
     int layers, int heads, int head_dim, int embed, int cache_len, int window,
     int vocab_pad, int num_steps, int start_step, int out_len, int use_rel,
-    unsigned seed, float softmax_scale, float eps, void* stream) {
+    unsigned seed, float softmax_scale, float eps, int cluster, void* stream) {
   auto go = bf16 ? run<__nv_bfloat16> : run<float>;
   return go(device, wte, wte_t, wpe, ln1, qkv_w, qkv_b, proj_w, proj_b, fc_w, fc_b, fp_w,
             fp_b, logits_b, rel, kcache, vcache, prompts, plens, temps, topk, topp, tokens,
             logits_out, batch, prompt_width, layers, heads, head_dim, embed, cache_len,
             window, vocab_pad, num_steps, start_step, out_len, use_rel, seed,
-            softmax_scale, eps, stream);
+            softmax_scale, eps, cluster, stream);
+}
+
+extern "C" int decode_generate_clusters(int bf16, int device, int cluster, int embed, int heads,
+                                        int head_dim, int keys, int vocab_pad, int* count) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!cluster_takes(cluster, embed, heads, head_dim, keys, vocab_pad, kStaticSharedBytes))
+    return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return cluster_occupancy(wide_units<__nv_bfloat16>(cluster, embed)
+                                 ? decode_generate_kernel<__nv_bfloat16, true>
+                                 : decode_generate_kernel<__nv_bfloat16, false>,
+                             cluster, embed, heads, keys, vocab_pad, count);
+  return cluster_occupancy(wide_units<float>(cluster, embed) ? decode_generate_kernel<float, true>
+                                                             : decode_generate_kernel<float, false>,
+                           cluster, embed, heads, keys, vocab_pad, count);
 }

@@ -13,34 +13,42 @@
 // back its own sample after. A negative position is parked (starts =
 // PARKED = 2**30 marks an empty slot): it emits -1 and writes nothing.
 //
-// Design: one thread block per slot, as in decode_generate.cu, running the
-// same one-token step body (decode_step in decode_common.cuh), so a slot's
-// ids equal decode_generate's bit for bit in either type. Each block has its
-// own position, so per-row positions cost nothing: the per-row position
-// embedding, relative-bias alignment and causal bound the TPU kernel paid
-// for by replicating rows are the step's own arguments here. A block
-// parked for the whole segment exits at once (the test is per block, so no
-// barrier is skipped by part of a block). `live` bounds the cache rows
-// attention reads: a row whose position reaches it attends to [0, live)
-// and writes nothing, so a finished row that lingers one segment (admission
-// lags eviction by one) can never write past its slot into the next one.
-// The Gumbel noise is Philox keyed by (seed, slot, global step i, lane), so
-// a row's samples do not depend on how the loop is cut into segments nor on
+// Design: one thread-block cluster per slot, as in decode_generate.cu, running
+// the same one-token step body (cluster_step in decode_cluster.cuh) at the
+// same cluster size for the same batch (ops/decode_kernel_batched.py::
+// cluster_size), so a slot's ids equal decode_generate's bit for bit in either
+// type; the step's sums do not depend on the cluster size, so neither do the
+// ids. It replaced one thread block per slot, which read every weight through
+// one SM a step. Each cluster has its own position, so per-row positions cost
+// nothing: the per-row position embedding, relative-bias alignment and
+// causal bound the TPU kernel paid for by replicating rows are the step's own
+// arguments here. A cluster parked for the whole segment exits at once: all
+// its blocks read the same starts[s], so they leave together, before any
+// block writes into another's shared memory. `live` bounds the cache rows
+// attention reads: a row whose position reaches it attends to [0, live) and
+// writes nothing, so a finished row that lingers one segment (admission lags
+// eviction by one) can never write past its slot into the next one. The
+// Gumbel noise is Philox keyed by (seed, slot, global step i, lane), so a
+// row's samples do not depend on how the loop is cut into segments nor on
 // when other rows were admitted.
 //
-// What bounds it on the H100: as decode_generate, one SM's read rate (about
-// 12.6 MB of bf16 weights per step and slot from L2, plus the slot's KV
-// prefix); only `batch` of the 132 SMs work. The H x live float32 scores
-// live in shared memory (ops/decode_kernel_segmented.py::segment_kernel_fits).
+// What bounds it on the H100: as decode_generate, each cluster's weight reads
+// from L2 (12.6/G MB of bf16 per block and step) and its slot's K/V prefix,
+// and the latency of the step's barriers. The (H/G) x live float32 scores
+// live in shared memory (ops/decode_kernel_segmented.py::segment_kernel_fits
+// admits by the one-block budget).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// C entry point: decode_segment(...), returns cudaGetLastError() after launch.
+// C entry points: decode_segment(...), returns the launch's cudaError_t;
+// decode_segment_clusters(...), the clusters of G blocks that can be resident
+// at once (cudaOccupancyMaxActiveClusters).
 
-#include "decode_common.cuh"
+#include "decode_cluster.cuh"
 
 namespace {
 
 using namespace decode_common;
+using namespace decode_cluster;
 
 // Static shared memory (s_token) beside the dynamic buffer; both count
 // against kMaxSharedBytes (STATIC_SHARED_BYTES in decode_kernel_batched.py).
@@ -63,12 +71,15 @@ struct Args {
   unsigned seed;
 };
 
-template <typename T>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads) decode_segment_kernel(const Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_token;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
   const int E = a.m.embed, C = a.cache_len, P = a.prompt_width;
-  const int s = blockIdx.x, tid = threadIdx.x;
+  const int s = blockIdx.x / G, tid = threadIdx.x;
+  const bool rank0 = cluster.block_rank() == 0;
   const int start = a.starts[s];
   const int plen = min(max(a.plens[s], 1), P);
   const int* prompt = a.prompts + (size_t)s * P;
@@ -76,15 +87,16 @@ __global__ void __launch_bounds__(kThreads) decode_segment_kernel(const Args<T> 
   // The first step of this segment at which the row is active.
   const long long lead = (long long)start - a.step0;
   const int first = lead <= 0 ? 0 : (lead >= a.steps ? a.steps : (int)lead);
-  for (int j = tid; j < first; j += kThreads) out[j] = -1;
+  if (rank0)
+    for (int j = tid; j < first; j += kThreads) out[j] = -1;
   if (first == a.steps) {
     // Parked through the whole segment: its next input is its prompt's
     // first token (position < 0 clamps into the prompt).
-    if (tid == 0) a.carry[s] = prompt[0];
+    if (rank0 && tid == 0) a.carry[s] = prompt[0];
     return;
   }
 
-  const StepScratch scratch(smem, E, a.m.heads, a.live, a.m.vocab_pad);
+  const ClusterScratch scratch(smem, E, a.m.heads / G, a.live, a.m.vocab_pad);
   T* krows = a.kcache + (size_t)s * C * E;
   T* vrows = a.vcache + (size_t)s * C * E;
   const size_t layer_stride = (size_t)a.batch * C * E;
@@ -96,36 +108,39 @@ __global__ void __launch_bounds__(kThreads) decode_segment_kernel(const Args<T> 
     const int pos = a.step0 + first - start;
     s_token = pos < plen ? prompt[pos] : a.carry[s];
   }
-  __syncthreads();
+  // Every block of the cluster runs before any block writes into its
+  // shared memory.
+  cluster.sync();
 
   for (int j = first; j < a.steps; ++j) {
     const int i = a.step0 + j;
     const int pos = i - start;
     const int key_pos = pos < a.live ? pos : a.live - 1;
-    const int next = decode_step<T>(a.m, scratch, s_token, pos, key_pos, pos < a.live, krows,
-                                    vrows, layer_stride, temp, topk, topp, a.seed,
-                                    (unsigned)i, (unsigned)s, nullptr);
+    const int next = cluster_step<T, kWide>(a.m, scratch, s_token, pos, key_pos, pos < a.live,
+                                            krows, vrows, layer_stride, temp, topk, topp,
+                                            a.seed, (unsigned)i, (unsigned)s, nullptr);
     if (tid == 0) {
-      out[j] = next;
+      if (rank0) out[j] = next;
       s_token = pos + 1 < plen ? prompt[pos + 1] : next;
     }
     __syncthreads();
   }
-  if (tid == 0) a.carry[s] = s_token;
+  // Every block has read the carry before rank 0 overwrites it, and no block
+  // leaves while a peer may still write into its shared memory.
+  cluster.sync();
+  if (rank0 && tid == 0) a.carry[s] = s_token;
 }
 
 template <typename T>
-int launch(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * step_smem_floats(a.m.embed, a.m.heads, a.live, a.m.vocab_pad);
-  if (smem + kStaticSharedBytes > (size_t)kMaxSharedBytes || a.m.head_dim % 8 != 0 ||
+int launch(const Args<T>& a, int cluster, cudaStream_t stream) {
+  if (!cluster_takes(cluster, a.m.embed, a.m.heads, a.m.head_dim, a.live, a.m.vocab_pad,
+                     kStaticSharedBytes) ||
       a.live < 1 || a.live > a.cache_len || a.steps < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_segment_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_segment_kernel<T><<<a.batch, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  return cluster_launch(wide_units<T>(cluster, a.m.embed) ? decode_segment_kernel<T, true>
+                                                           : decode_segment_kernel<T, false>,
+                        cluster, a.batch, a.m.embed, a.m.heads,
+                        a.live, a.m.vocab_pad, stream, a);
 }
 
 template <typename T>
@@ -137,7 +152,7 @@ int run(int device, const void* wte, const void* wte_t, const void* wpe, const v
         const void* topk, const void* topp, void* tokens, int batch, int prompt_width,
         int layers, int heads, int head_dim, int embed, int cache_len, int window,
         int vocab_pad, int step0, int steps, int live, int use_rel, unsigned seed,
-        float softmax_scale, float eps, void* stream) {
+        float softmax_scale, float eps, int cluster, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args<T> a;
@@ -167,7 +182,7 @@ int run(int device, const void* wte, const void* wte_t, const void* wpe, const v
   a.steps = steps;
   a.live = live;
   a.seed = seed;
-  return launch<T>(a, static_cast<cudaStream_t>(stream));
+  return launch<T>(a, cluster, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -181,10 +196,27 @@ extern "C" int decode_segment(
     const void* temps, const void* topk, const void* topp, void* tokens, int batch,
     int prompt_width, int layers, int heads, int head_dim, int embed, int cache_len,
     int window, int vocab_pad, int step0, int steps, int live, int use_rel, unsigned seed,
-    float softmax_scale, float eps, void* stream) {
+    float softmax_scale, float eps, int cluster, void* stream) {
   auto go = bf16 ? run<__nv_bfloat16> : run<float>;
   return go(device, wte, wte_t, wpe, ln1, qkv_w, qkv_b, proj_w, proj_b, fc_w, fc_b, fp_w,
             fp_b, logits_b, rel, kcache, vcache, carry, prompts, plens, starts, temps, topk,
             topp, tokens, batch, prompt_width, layers, heads, head_dim, embed, cache_len,
-            window, vocab_pad, step0, steps, live, use_rel, seed, softmax_scale, eps, stream);
+            window, vocab_pad, step0, steps, live, use_rel, seed, softmax_scale, eps, cluster,
+            stream);
+}
+
+extern "C" int decode_segment_clusters(int bf16, int device, int cluster, int embed, int heads,
+                                       int head_dim, int keys, int vocab_pad, int* count) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!cluster_takes(cluster, embed, heads, head_dim, keys, vocab_pad, kStaticSharedBytes))
+    return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return cluster_occupancy(wide_units<__nv_bfloat16>(cluster, embed)
+                                 ? decode_segment_kernel<__nv_bfloat16, true>
+                                 : decode_segment_kernel<__nv_bfloat16, false>,
+                             cluster, embed, heads, keys, vocab_pad, count);
+  return cluster_occupancy(wide_units<float>(cluster, embed) ? decode_segment_kernel<float, true>
+                                                             : decode_segment_kernel<float, false>,
+                           cluster, embed, heads, keys, vocab_pad, count);
 }

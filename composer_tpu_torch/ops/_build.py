@@ -88,11 +88,15 @@ _PTR, _I32, _U32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_
 ENTRY_POINTS = {
     "decode_generate": {
         "decode_generate": (
-            [_I32, _I32] + [_PTR] * 23 + [_I32] * 13 + [_U32, _F32, _F32, _PTR]
+            [_I32, _I32] + [_PTR] * 23 + [_I32] * 13 + [_U32, _F32, _F32, _I32, _PTR]
         ),
+        "decode_generate_clusters": [_I32] * 8 + [_PTR],
     },
     "decode_segment": {
-        "decode_segment": [_I32, _I32] + [_PTR] * 24 + [_I32] * 13 + [_U32, _F32, _F32, _PTR],
+        "decode_segment": (
+            [_I32, _I32] + [_PTR] * 24 + [_I32] * 13 + [_U32, _F32, _F32, _I32, _PTR]
+        ),
+        "decode_segment_clusters": [_I32] * 8 + [_PTR],
     },
     "decode_wide": {
         "decode_wide": [_I32] * 4 + [_PTR] * 27 + [_I32] * 13 + [_U32, _F32, _F32, _PTR],

@@ -7,22 +7,29 @@ replaces both TPU kernels of the decode path:
 * ``composer_tpu/ops/decode_kernel_batched.py::_batched_kernel`` (B > 1);
 * ``composer_tpu/ops/decode_kernel.py::_decode_kernel`` (B = 1).
 
-Design. One thread block per sequence; the rows share only the weights, so
-no grid-wide synchronisation is needed. Each block loops over every step
-and layer in the kernel, as the TPU kernel does: embedding, 8 pre-LN layers
-with the KV append, attention with the relative bias, tied logits,
-temperature, top-k / top-p, Gumbel-max and token feedback. The KV cache
-lives in device memory in the ``(L, B*C, E)`` layout that
+Design. One thread-block cluster per sequence: ``cluster_size`` blocks
+(G) on G SMs of one GPC, exchanging activations through distributed shared
+memory; the sequences share only the weights, so no grid-wide
+synchronisation is needed. Each cluster loops over every step and layer in
+the kernel, as the TPU kernel does: embedding, 8 pre-LN layers with the KV
+append, attention with the relative bias, tied logits, temperature, top-k /
+top-p, Gumbel-max and token feedback. Block g owns H/G heads and a 1/G slice
+of every matmul's columns (``csrc/decode_cluster.cuh``). The KV cache lives
+in device memory in the ``(L, B*C, E)`` layout that
 ``cache_to_rows_batched`` exports, so a prefilled cache feeds it unchanged.
 The random bits come from a Philox4x32-10 written into the kernel and keyed
 by (seed, row, step, vocab lane); ``gumbel_noise`` draws the same bits, so
-the kernel and ``decode_generate_reference`` sample identical ids.
+the kernel and ``decode_generate_reference`` sample identical ids. Every sum
+is taken in the one-block kernel's order, set by the model's widths alone:
+the ids equal that kernel's bit for bit and do not depend on G, so not on
+the batch a row runs in.
 
-What bounds it on the H100: every step each block reads all packed weights
-(about 12.6 MB in bf16 for the default model) from L2, and only B of the
-132 SMs are busy. The attention scores (``H x C`` float32) live in shared
-memory, which bounds the cache length (``kernel_fits``). Spreading a step
-over more SMs, ``wgmma`` and TMA are later work.
+What bounds it on the H100: every step each cluster reads all packed weights
+(about 12.6 MB in bf16 for the default model) from L2, 12.6/G MB a block,
+and its row's K/V prefix; B x G of the 132 SMs work. The attention scores
+(``H/G x C`` float32) live in shared memory; caches are admitted by the
+budget of the one-block layout, which every G fits (``kernel_fits``).
+``wgmma`` and TMA are later work.
 """
 
 from __future__ import annotations
@@ -48,10 +55,64 @@ MAX_SHARED_BYTES = 232448
 STATIC_SHARED_BYTES = 16
 
 
+# Cluster sizes the resident decode kernels take, largest first; the first
+# must match kMaxCluster in csrc/decode_cluster.cuh.
+CLUSTER_SIZES = (16, 8, 4, 2)
+
+
+def cluster_size(batch: int, heads: int, sm_count: int, max_active) -> int:
+    """Blocks G of the cluster that runs one sequence (or serving slot) in
+    ``decode_generate`` and ``decode_segment``: the largest of
+    ``CLUSTER_SIZES`` that divides ``heads``, keeps ``batch * G`` within
+    ``sm_count`` and lets all ``batch`` clusters be resident at once, where
+    ``max_active[G]`` is the count of G-block clusters the card can hold
+    (``cudaOccupancyMaxActiveClusters`` for the kernel and its shared
+    memory); 1, the one-block layout, when none does. A pure function of its
+    arguments: there is no other setting."""
+    for g in CLUSTER_SIZES:
+        if heads % g == 0 and batch * g <= sm_count and max_active.get(g, 0) >= batch:
+            return g
+    return 1
+
+
+_MAX_ACTIVE: dict = {}
+
+
+def launch_cluster_size(library: str, config, batch: int, keys: int, wdtype, device) -> int:
+    """``cluster_size`` for a launch of ``library``'s kernel (``decode_generate``
+    or ``decode_segment``) on ``device``, with ``max_active`` queried from the
+    card once per kernel type, widths and ``keys`` (score slots per head)."""
+    import ctypes
+
+    from composer_tpu_torch.ops._build import load_library
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    bf16 = 1 if wdtype == torch.bfloat16 else 0
+    key = (library, bf16, index, config.embed_dim, config.num_heads, config.head_dim, keys,
+           vocab_pad(config))
+    max_active = _MAX_ACTIVE.get(key)
+    if max_active is None:
+        query = getattr(load_library(library), f"{library}_clusters")
+        max_active = {}
+        for g in CLUSTER_SIZES:
+            if config.num_heads % g:
+                continue
+            count = ctypes.c_int(0)
+            err = query(bf16, index, g, *key[3:], ctypes.byref(count))
+            if err != 0:
+                raise RuntimeError(f"{library}: cluster occupancy query failed for G={g}: "
+                                   f"CUDA error {err}")
+            max_active[g] = count.value
+        _MAX_ACTIVE[key] = max_active
+    sm_count = torch.cuda.get_device_properties(index).multi_processor_count
+    return cluster_size(batch, config.num_heads, sm_count, max_active)
+
+
 def kernel_smem_bytes(config, cache_len: int) -> int:
-    """Shared memory of one block, static and dynamic; mirrors
-    ``step_smem_floats`` in decode_common.cuh (``cache_len`` score slots per
-    head)."""
+    """The shared-memory budget a cache is admitted by, static and dynamic:
+    the one-block layout's (``budget_floats`` in csrc/decode_cluster.cuh,
+    ``cache_len`` score slots per head), which a block of any cluster size
+    fits."""
     floats = (64 + 11 * config.embed_dim + 4 * vocab_pad(config) + config.num_heads * cache_len
               + KERNEL_THREADS * 8)
     return 4 * floats + STATIC_SHARED_BYTES
@@ -59,9 +120,10 @@ def kernel_smem_bytes(config, cache_len: int) -> int:
 
 def kernel_fits(config, cache_len: int) -> bool:
     """The kernel's limits: the ``H x cache_len`` float32 scores plus the
-    per-block activations must fit 227 KB of shared memory (for the default
-    model, cache_len <= 3067), and head_dim must be a multiple of 8 (16-byte
-    loads of a head's lanes)."""
+    per-block activations of the one-block layout must fit 227 KB of shared
+    memory (for the default model, cache_len <= 3067; a block of a larger
+    cluster holds H/G score rows and fits too), and head_dim must be a
+    multiple of 8 (16-byte loads of a head's lanes)."""
     return (kernel_smem_bytes(config, cache_len) <= MAX_SHARED_BYTES
             and config.head_dim % 8 == 0)
 
@@ -189,8 +251,9 @@ def decode_generate(packed, prompts, plens, seed, temps, topk, topp, k_rows, v_r
     logits.
 
     On CPU tensors this is the plain version. On CUDA tensors it launches the
-    kernel (counted in ``decode_generate.launches_batched`` for B > 1 and
-    ``decode_generate.launches_single`` for B = 1) or raises.
+    kernel as B clusters of ``cluster_size`` blocks (G, kept in
+    ``decode_generate.cluster``; counted in ``decode_generate.launches_batched``
+    for B > 1 and ``decode_generate.launches_single`` for B = 1) or raises.
     """
     device = packed["wte"].device
     if device.type == "cpu":
@@ -249,6 +312,7 @@ def decode_generate(packed, prompts, plens, seed, temps, topk, topp, k_rows, v_r
         raise ValueError("rel_rows must hold window_size rows with relative attention on")
 
     lib = load_library()
+    cluster = launch_cluster_size("decode_generate", config, B, cache_len, wdtype, device)
     ptr = ctypes.c_void_p
     err = lib.decode_generate(
         ctypes.c_int(1 if wdtype == torch.bfloat16 else 0),
@@ -266,10 +330,13 @@ def decode_generate(packed, prompts, plens, seed, temps, topk, topp, k_rows, v_r
         ctypes.c_uint(int(seed) & 0xFFFFFFFF),
         ctypes.c_float(float(config.head_dim) ** -0.5 if config.scale_attention else 1.0),
         ctypes.c_float(config.layer_norm_epsilon),
+        ctypes.c_int(cluster),
         ptr(torch.cuda.current_stream(device).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"decode_generate kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"decode_generate kernel launch failed (cluster {cluster}): "
+                           f"CUDA error {err}")
+    decode_generate.cluster = cluster
     if B > 1:
         decode_generate.launches_batched += 1
     else:
@@ -279,6 +346,7 @@ def decode_generate(packed, prompts, plens, seed, temps, topk, topp, k_rows, v_r
 
 decode_generate.launches_batched = 0
 decode_generate.launches_single = 0
+decode_generate.cluster = None  # G of the last launch
 
 
 def megakernel_generate_batched(packed, prompts, seed, temperature, *, config,

@@ -43,6 +43,7 @@ from composer_tpu_torch.ops.decode_kernel_batched import (
     _standardize,
     kernel_fits,
     kernel_smem_bytes,
+    launch_cluster_size,
 )
 
 PARKED = 2**30  # start value for empty slots: never reached
@@ -172,8 +173,9 @@ def decode_segment(packed, kcache, vcache, carry, prompts, plens, starts, step0:
     row s's raw sample after each step, -1 while parked (the scheduler
     gathers a generation from column ``starts + plens - 1 - step0`` on); the
     state is updated in place. On CPU tensors this is the plain version; on
-    CUDA tensors it launches the kernel (counted in ``decode_segment.
-    launches``) or raises.
+    CUDA tensors it launches the kernel as B clusters of ``cluster_size``
+    blocks (G, kept in ``decode_segment.cluster``; counted in
+    ``decode_segment.launches``) or raises.
     """
     device, wdtype = packed["wte"].device, packed["wte"].dtype
     B = prompts.shape[0]
@@ -221,6 +223,7 @@ def decode_segment(packed, kcache, vcache, carry, prompts, plens, starts, step0:
     tokens = torch.empty((B, steps), dtype=torch.int32, device=device)
 
     lib = load_library("decode_segment")
+    cluster = launch_cluster_size("decode_segment", config, B, live, wdtype, device)
     ptr = ctypes.c_void_p
     err = lib.decode_segment(
         ctypes.c_int(1 if wdtype == torch.bfloat16 else 0),
@@ -236,12 +239,16 @@ def decode_segment(packed, kcache, vcache, carry, prompts, plens, starts, step0:
         ctypes.c_uint(int(seed) & 0xFFFFFFFF),
         ctypes.c_float(float(config.head_dim) ** -0.5 if config.scale_attention else 1.0),
         ctypes.c_float(config.layer_norm_epsilon),
+        ctypes.c_int(cluster),
         ptr(torch.cuda.current_stream(device).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"decode_segment kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"decode_segment kernel launch failed (cluster {cluster}): "
+                           f"CUDA error {err}")
     decode_segment.launches += 1
+    decode_segment.cluster = cluster
     return tokens, kcache, vcache, carry
 
 
 decode_segment.launches = 0
+decode_segment.cluster = None  # G of the last launch

@@ -155,3 +155,109 @@ def test_largest_cache_that_fits_launches(cuda_device):
     assert int(tokens.max()) < 390
     with pytest.raises(ValueError, match="shared memory"):
         decode_generate(*args, **kwargs, cache_len=3068)
+
+
+def _default_widths(use_relative, dtype, device, seed=2):
+    """The default model's widths (E 256, 16 heads of 16, window 1024) at 2
+    layers, packed in ``dtype``."""
+    config = TransformerConfig(vocab_size=390, num_layers=2, use_relative_attention=use_relative,
+                               initializer_stddev=0.3)
+    model = Transformer(config, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return config, dk.pack_weights(model.state_dict(), config, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ids_do_not_depend_on_batch(cuda_device, dtype):
+    """A row's ids do not depend on the batch it runs in, though the batch
+    sets the cluster size (``cluster_size``: 16 at B=1, 8 or 16 at B=8, 4 at
+    B=32): the rows B=1, 8 and 32 share are equal bit for bit, greedy and
+    sampled (the noise is keyed by row and step)."""
+    config, packed = _default_widths(True, dtype, cuda_device)
+    prompts = torch.as_tensor(np.random.default_rng(8).integers(0, 390, (32, 10)),
+                              dtype=torch.int32, device=cuda_device)
+    plens = torch.full((32,), 10, dtype=torch.int32, device=cuda_device)
+    kwargs = dict(config=config, num_steps=10 + 200 - 1, out_len=200, cache_len=256,
+                  start_step=0)
+    for temperature, top_k, top_p in ((0.0, 0, 0.0), (1.0, 40, 0.9)):
+        runs, clusters = {}, set()
+        for batch in (1, 8, 32):
+            temps, topk, topp = dk.row_params(batch, 512, temperature, top_k, top_p, False,
+                                              True, True, cuda_device)
+            runs[batch] = decode_generate(packed, prompts[:batch], plens[:batch], 5, temps,
+                                          topk, topp, None, None, **kwargs)
+            clusters.add(decode_generate.cluster)
+        torch.cuda.synchronize()
+        assert len(clusters) >= 2, clusters
+        assert torch.equal(runs[1].cpu(), runs[8][:1].cpu()), f"temperature {temperature}"
+        assert torch.equal(runs[8].cpu(), runs[32][:8].cpu()), f"temperature {temperature}"
+        if temperature == 0.0:
+            assert len(set(runs[32].flatten().tolist())) >= 8  # not a degenerate stream
+
+
+@pytest.mark.parametrize("use_relative", [False, True])
+def test_kernel_matches_plain_version_at_batch_32(cuda_device, use_relative):
+    """f32 at the default widths with 32 sequences (cluster size 4 or 2 by
+    the rule, as the card's GPCs hold 32 clusters of 4): ragged prompts,
+    mixed per-row sampling; ids identical to the plain version's, last-step
+    logits within 1e-3."""
+    config, packed = _default_widths(use_relative, torch.float32, cuda_device, seed=3)
+    rng = np.random.default_rng(9)
+    prompts = torch.as_tensor(rng.integers(0, 390, (32, 9)), dtype=torch.int32,
+                              device=cuda_device)
+    plens = torch.as_tensor(rng.integers(1, 10, 32), dtype=torch.int32, device=cuda_device)
+    temps, topk, topp = dk.row_params(
+        32, 512, rng.choice([0.0, 0.8, 1.0, 1.2], 32).astype(np.float32),
+        rng.choice([0, 5, 40], 32), rng.choice([0.0, 0.9], 32).astype(np.float32),
+        False, True, True, cuda_device)
+    logits = [torch.zeros((32, 512), device=cuda_device) for _ in range(2)]
+    kwargs = dict(config=config, num_steps=9 + 120 - 1, out_len=9 + 120 - 1, cache_len=256,
+                  start_step=0)
+    args = (packed, prompts, plens, 13, temps, topk, topp, None, None)
+    ours = decode_generate(*args, **kwargs, logits_out=logits[0])
+    plain = decode_generate_reference(*args, **kwargs, logits_out=logits[1])
+    torch.cuda.synchronize()
+    assert decode_generate.cluster in (2, 4)
+    assert torch.equal(ours, plain)
+    assert float((logits[0] - logits[1]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch, cluster", [(48, 2), (80, 1)], ids=["G2", "G1"])
+def test_two_and_one_block_clusters(cuda_device, dtype, batch, cluster):
+    """The layouts the rule picks for many sequences on 132 SMs: clusters of
+    2 from 34 to 66 sequences, and from 67 on the one-block layout in the
+    same code. f32: ids identical to the plain version's, last-step logits
+    within 1e-3 (ragged prompts, mixed per-row sampling). Both types: row 0
+    (sampled) and the last row (greedy) give the ids and last-step logits of
+    a B=1 call of that row, bit for bit."""
+    config, packed = _default_widths(True, dtype, cuda_device, seed=6)
+    rng = np.random.default_rng(batch)
+    prompts = torch.as_tensor(rng.integers(0, 390, (batch, 9)), dtype=torch.int32,
+                              device=cuda_device)
+    plens = torch.as_tensor(rng.integers(1, 10, batch), dtype=torch.int32, device=cuda_device)
+    values = [rng.choice([0.0, 0.8, 1.0, 1.2], batch).astype(np.float32),
+              rng.choice([0, 5, 40], batch), rng.choice([0.0, 0.9], batch).astype(np.float32)]
+    values[0][0], values[0][-1] = 1.0, 0.0
+    kwargs = dict(config=config, num_steps=9 + 64 - 1, out_len=9 + 64 - 1, cache_len=128,
+                  start_step=0)
+
+    def run(kernel, rows):
+        temps, topk, topp = dk.row_params(len(rows), 512, *(v[rows] for v in values), False,
+                                          True, True, cuda_device)
+        logits = torch.zeros((len(rows), 512), device=cuda_device)
+        ids = kernel(packed, prompts[rows], plens[rows], 13, temps, topk, topp, None, None,
+                     **kwargs, logits_out=logits)
+        return ids.cpu(), logits.cpu()
+
+    ids, logits = run(decode_generate, list(range(batch)))
+    assert decode_generate.cluster == cluster
+    if dtype == torch.float32:
+        plain_ids, plain_logits = run(decode_generate_reference, list(range(batch)))
+        assert torch.equal(ids, plain_ids)
+        assert float((logits - plain_logits).abs().max()) <= 1e-3
+    for row in (0, batch - 1):
+        alone_ids, alone_logits = run(decode_generate, [row])
+        assert decode_generate.cluster == 16
+        assert torch.equal(alone_ids[0], ids[row]), f"row {row}"
+        assert torch.equal(alone_logits[0], logits[row]), f"row {row}"

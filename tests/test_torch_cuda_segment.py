@@ -44,19 +44,22 @@ def _model(use_relative, device, **kwargs):
 def _both(packed, config, prompts, plens, starts, boundaries, sampling, live=CACHE):
     """Kernel and plain version over the same segmentation, each on its own
     state: ((stream, kcache, carry) of the kernel, the same of the plain)."""
-    B = prompts.shape[0]
-    results = []
-    for run in (seg.decode_segment, _plain):
-        kcache, vcache, carry = seg.init_segment_state(packed, config, B, CACHE)
-        chunks = []
-        for b0, b1 in zip(boundaries[:-1], boundaries[1:]):
-            tokens, kcache, vcache, carry = run(
-                packed, kcache, vcache, carry, prompts, plens, starts, b0, 3, *sampling,
-                config=config, steps=b1 - b0, cache_len=CACHE, live=live)
-            chunks.append(tokens)
-        torch.cuda.synchronize()
-        results.append((torch.cat(chunks, dim=1).cpu(), kcache, carry.cpu()))
-    return results
+    return [_segments(run, packed, config, prompts, plens, starts, boundaries, sampling, live)
+            for run in (seg.decode_segment, _plain)]
+
+
+def _segments(run, packed, config, prompts, plens, starts, boundaries, sampling, live=CACHE):
+    """``run`` (the kernel or the plain version) over the segmentation from a
+    fresh state: (stream, kcache, carry)."""
+    kcache, vcache, carry = seg.init_segment_state(packed, config, prompts.shape[0], CACHE)
+    chunks = []
+    for b0, b1 in zip(boundaries[:-1], boundaries[1:]):
+        tokens, kcache, vcache, carry = run(
+            packed, kcache, vcache, carry, prompts, plens, starts, b0, 3, *sampling,
+            config=config, steps=b1 - b0, cache_len=CACHE, live=live)
+        chunks.append(tokens)
+    torch.cuda.synchronize()
+    return torch.cat(chunks, dim=1).cpu(), kcache, carry.cpu()
 
 
 def _plain(packed, kcache, vcache, carry, prompts, plens, starts, step0, seed, temperature,
@@ -228,3 +231,103 @@ def test_service_launches_the_kernel_and_matches_the_unfused_path(cuda_device):
                                     np.asarray(prompt, np.int32), length=20, temperature=0.0,
                                     engine="xla")
         np.testing.assert_array_equal(out, expected)
+
+
+def _default_widths(dtype, device, seed=4):
+    """The default model's widths (E 256, 16 heads of 16) at 2 layers,
+    relative attention on, packed in ``dtype``."""
+    config = TransformerConfig(vocab_size=390, num_layers=2, use_relative_attention=True,
+                               initializer_stddev=0.3)
+    model = Transformer(config, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return config, dk.pack_weights(model.state_dict(), config, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ids_do_not_depend_on_batch(cuda_device, dtype):
+    """A slot's ids do not depend on how many slots the service runs, though
+    that count sets the cluster size: the slots that 1, 8 and 32 share give
+    equal ids and carry bit for bit over three segments, greedy and sampled."""
+    config, packed = _default_widths(dtype, cuda_device)
+    prompts = np.random.default_rng(10).integers(0, 390, (32, 10)).astype(np.int32)
+    plens = np.full(32, 10, np.int32)
+    for sampling in (GREEDY, (1.0, 40, 0.9)):
+        runs, clusters = {}, set()
+        for slots in (1, 8, 32):
+            state = seg.init_segment_state(packed, config, slots, 256)
+            chunks = []
+            for b0 in range(0, 192, 64):
+                tokens, *state = seg.decode_segment(
+                    packed, *state, prompts[:slots], plens[:slots],
+                    np.zeros(slots, np.int32), b0, 5, *sampling, config=config, steps=64,
+                    cache_len=256, live=256)
+                chunks.append(tokens)
+                clusters.add(seg.decode_segment.cluster)
+            runs[slots] = (torch.cat(chunks, dim=1).cpu(), state[2].cpu())
+        torch.cuda.synchronize()
+        assert len(clusters) >= 2, clusters
+        for small, large in ((1, 8), (8, 32)):
+            assert torch.equal(runs[small][0], runs[large][0][:small]), (sampling, small)
+            assert torch.equal(runs[small][1], runs[large][1][:small]), (sampling, small)
+
+
+def test_kernel_matches_plain_version_at_32_slots(cuda_device):
+    """f32 at the default widths with 32 slots (cluster size 4 or 2 by the
+    rule, as the card's GPCs hold 32 clusters of 4):
+    ragged prompts, mixed per-row sampling, parked and late slots, segments
+    of 7 and 64: ids and carry identical to the plain version's."""
+    config, packed = _default_widths(torch.float32, cuda_device, seed=5)
+    rng = np.random.default_rng(11)
+    prompts = rng.integers(0, 390, (32, 9)).astype(np.int32)
+    plens = rng.integers(1, 10, 32).astype(np.int32)
+    starts = rng.choice([0, 0, 0, 5, 40], 32).astype(np.int32)
+    starts[3] = seg.PARKED
+    sampling = (rng.choice([0.0, 0.8, 1.0], 32).astype(np.float32), rng.choice([0, 5, 40], 32),
+                rng.choice([0.0, 0.9], 32).astype(np.float32))
+    for step in (7, 64):
+        boundaries = list(range(0, 120, step)) + [120]
+        (ours, _, carry), (plain, _, carry_plain) = _both(
+            packed, config, prompts, plens, starts, boundaries, sampling)
+        assert seg.decode_segment.cluster in (2, 4)
+        assert torch.equal(ours, plain), f"segments of {step}"
+        assert torch.equal(carry, carry_plain)
+        assert (ours[3] == -1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slots, cluster", [(48, 2), (80, 1)], ids=["G2", "G1"])
+def test_two_and_one_block_clusters(cuda_device, dtype, slots, cluster):
+    """The layouts the rule picks for many slots on 132 SMs: clusters of 2
+    from 34 to 66 slots, and from 67 on the one-block layout in the same
+    code. f32: ids and carry identical to the plain version's (ragged
+    prompts, mixed per-row sampling, parked and late slots, segments of 7
+    and 64). Both types: slot 0 (sampled) and the last slot (greedy) give
+    the ids and carry of a one-slot run, bit for bit."""
+    config, packed = _default_widths(dtype, cuda_device, seed=7)
+    rng = np.random.default_rng(slots)
+    prompts = rng.integers(0, 390, (slots, 9)).astype(np.int32)
+    plens = rng.integers(1, 10, slots).astype(np.int32)
+    starts = rng.choice([0, 0, 0, 5, 40], slots).astype(np.int32)
+    starts[[0, -1]] = 0
+    starts[3] = seg.PARKED
+    sampling = [rng.choice([0.0, 0.8, 1.0], slots).astype(np.float32),
+                rng.choice([0, 5, 40], slots), rng.choice([0.0, 0.9], slots).astype(np.float32)]
+    sampling[0][0], sampling[0][-1] = 1.0, 0.0
+    for step in (7, 64):
+        boundaries = list(range(0, 120, step)) + [120]
+        ours, _, carry = _segments(seg.decode_segment, packed, config, prompts, plens, starts,
+                                   boundaries, sampling)
+        assert seg.decode_segment.cluster == cluster
+        assert (ours[3] == -1).all()
+        if dtype == torch.float32:
+            plain, _, carry_plain = _segments(_plain, packed, config, prompts, plens, starts,
+                                              boundaries, sampling)
+            assert torch.equal(ours, plain), f"segments of {step}"
+            assert torch.equal(carry, carry_plain)
+        for slot in (0, slots - 1):
+            alone, _, alone_carry = _segments(
+                seg.decode_segment, packed, config, prompts[[slot]], plens[[slot]],
+                starts[[slot]], boundaries, [v[[slot]] for v in sampling])
+            assert seg.decode_segment.cluster == 16
+            assert torch.equal(alone[0], ours[slot]), f"slot {slot}, segments of {step}"
+            assert torch.equal(alone_carry[0], carry[slot])

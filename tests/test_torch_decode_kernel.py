@@ -232,6 +232,43 @@ def test_kernel_limit_counts_static_shared_memory():
             <= dkb.MAX_SHARED_BYTES)
 
 
+# cudaOccupancyMaxActiveClusters-like counts for 132 SMs: 16-block clusters
+# fit fewer times than 132 / 16 (a GPC may hold fewer than 16 free SMs).
+_SEVEN_OF_16 = {16: 7, 8: 16, 4: 33, 2: 66}
+_EIGHT_OF_16 = {16: 8, 8: 16, 4: 33, 2: 66}
+
+
+@pytest.mark.parametrize("batch, heads, max_active, expected", [
+    (1, 16, _SEVEN_OF_16, 16),
+    (8, 16, _SEVEN_OF_16, 8),    # 8 clusters of 16 would not all be resident
+    (8, 16, _EIGHT_OF_16, 16),
+    (16, 16, _SEVEN_OF_16, 8),
+    (32, 16, _SEVEN_OF_16, 4),
+    (33, 16, _SEVEN_OF_16, 4),   # 33 x 4 = 132 SMs
+    (34, 16, _SEVEN_OF_16, 2),
+    (64, 16, _SEVEN_OF_16, 2),
+    (66, 16, _SEVEN_OF_16, 2),
+    (67, 16, _SEVEN_OF_16, 1),   # 67 x 2 > 132: the one-block layout
+    (132, 16, _SEVEN_OF_16, 1),
+    (500, 16, _SEVEN_OF_16, 1),
+    (8, 16, {16: 7, 8: 7, 4: 7, 2: 7}, 1),  # nothing holds 8 clusters at once
+    (1, 16, {}, 1),
+    (1, 4, _SEVEN_OF_16, 4),     # G divides H
+    (1, 12, _SEVEN_OF_16, 4),
+    (1, 1, _SEVEN_OF_16, 1),
+])
+def test_cluster_size_rule(batch, heads, max_active, expected):
+    """``cluster_size`` picks the largest power of two G <= 16 that divides
+    H, keeps B x G within the SM count and lets all B clusters be resident
+    (``max_active``); else 1. At the default and flagship widths (16 heads,
+    132 SMs): 16 at B=1, 8 or 16 at B=8 as the card holds them, 1 from 67
+    sequences on."""
+    from composer_tpu_torch.ops import decode_kernel_batched as dkb
+
+    assert dkb.cluster_size(batch, heads, 132, max_active) == expected
+    assert dkb.CLUSTER_SIZES == (16, 8, 4, 2)
+
+
 def _rows(rng, n=3, vocab=390, vpad=512):
     x = rng.normal(0.0, 3.0, (n, vpad)).astype(np.float32)
     x[:, vocab:] = dk.NEG_INF  # padding lanes, as the kernel's logits_b makes them
