@@ -72,23 +72,33 @@ Phases (any failure exits non-zero):
    timed with CUDA events on each route: bf16 at the training path's shapes
    and at the flagship's (B=8, S=2048, D=64), float32 at the training
    path's, each beside ``flash_bound``.
-6. The speculative kernel ``spec_decode`` (csrc/spec_decode.cu) against its
-   plain PyTorch version in float32: identical tokens and stats, greedy and
-   sampled, relative attention off and on, blocks 2, 3, 5 and 11 at 64
-   steps with cache 128 at the default widths, block 16 on a narrower
-   model, and the main path's shape 1 x (10 + 1014), cache 1024, greedy at
-   T=5 and sampled at T=3. Then ``generate_ids(engine="auto",
+6. The speculative kernel ``spec_decode`` (csrc/spec_decode.cu, one
+   thread-block cluster of G blocks, G printed) against its plain PyTorch
+   version in float32: identical tokens and stats, greedy and sampled,
+   relative attention off and on, blocks 2, 3, 5 and 11 at 64 steps with
+   cache 128 at the default widths, block 16 on a narrower model, and the
+   main path's shape 1 x (10 + 1014), cache 1024, greedy at T=5 and sampled
+   at T=3. Then its ids against ``decode_generate``'s at batch 1, equal bit
+   for bit in float32 and bfloat16, relative attention off and on: greedy
+   and sampled (top-k 30, top-p 0.9) at blocks 2, 3, 5 and 11, 64 steps with
+   cache 128, and greedy T=5 and sampled T=3 at the main shape, where the
+   kernel runs twice (a race between the blocks of its cluster shows as ids
+   that differ only sometimes). Then ``generate_ids(engine="auto",
    temperature=0)`` at batch 1 with bfloat16 weights, on random weights and
    on phase 5's restored model (relative attention off): the speculative
    kernel's launch count must rise and the sequential kernel's must not,
-   ids must lie in the vocabulary, and a MIDI file is written. Each bf16
-   run's tokens, and those of the timed kernel call, are teacher-forced
-   through the plain version's bf16 forward: every emitted token's logit
-   must lie within 2% of the logits' scale of its row's maximum. The id
-   agreement with the sequential kernel (not asserted: bf16 near-ties
-   flip), the realized acceptance (tokens per generation block), events/s
-   of both engines, and the kernel's, the sequential kernel's and the
-   plain version's times are printed.
+   ids must lie in the vocabulary and equal ``engine="megakernel"``'s, and
+   a MIDI file is written. Each bf16 run's tokens, and those of the timed
+   kernel call, are teacher-forced through the plain version's bf16
+   forward: every emitted token's logit must lie within 2% of the logits'
+   scale of its row's maximum. The realized acceptance (tokens per
+   generation block), events/s of both engines, and the kernel's (twice),
+   the sequential kernel's and the plain version's times are printed, with
+   the block / step ratio (the acceptance at which spec breaks even).
+   ``python3 chip_smoke.py --parent <checkout>`` also builds that
+   checkout's ``csrc/spec_decode.cu`` (the parent commit, unpacked with
+   ``git archive`` into a directory ``.gitignore`` lists) and times it on
+   the same inputs, parent, this, this, parent.
 7. The segmented decode kernel ``decode_segment`` (csrc/decode_segment.cu)
    and ``ContinuousGenerationService``. (a) Kernel against plain version in
    float32 at the default widths: 8 slots, ragged prompts, a slot parked
@@ -170,8 +180,9 @@ each step's weights and K/V prefixes again where they outgrow the 50 MB L2
 (``kv_bytes``); the flash pair once for each
 (dtype, head_dim) built, told apart by ``variant``, ``dtype`` and
 ``head_dim``; ``cluster``, the blocks a sequence took, for the cluster
-kernels, else null), then, as the last line, ``{"ok": true, "device":
-{...}}``.
+kernels, else null; for the speculative kernel ``parent_ms``, the
+``--parent`` checkout's times or null), then, as the last line, ``{"ok":
+true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-planted-faults
 
@@ -1245,6 +1256,104 @@ def spec_vs_plain(device) -> int:
     return worst
 
 
+def spec_sequential_case(name, packed, config, prompt, seed, sampling, block, length,
+                         cache_len, runs=1) -> None:
+    """The speculative kernel's ids against ``decode_generate``'s at batch 1
+    on the same request: equal bit for bit, in either type (each emitted row
+    is that kernel's step at its position, summed in its order). The
+    speculative kernel runs ``runs`` times and must give the same ids each
+    time (a race between the blocks of its cluster shows as ids that differ
+    only sometimes)."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.ops import decode_kernel_spec as dks
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+
+    device = packed["wte"].device
+    temps, topk, topp = dk.row_params(1, packed["wte"].shape[0], *sampling, False, True, True,
+                                      device)
+    row = torch.as_tensor(prompt, dtype=torch.int32, device=device)
+    plens = torch.full((1,), len(prompt), dtype=torch.int32, device=device)
+    sequential = decode_generate(packed, row[None], plens, seed, temps, topk, topp, None, None,
+                                 config=config, num_steps=len(prompt) + length - 1,
+                                 out_len=length, cache_len=cache_len, start_step=0)[0]
+    args = (packed, row, seed, float(temps[0]), float(topk[0]), float(topp[0]))
+    kwargs = dict(config=config, length=length, cache_len=cache_len, block=block)
+    outs = [dks.spec_decode(*args, **kwargs)[0] for _ in range(runs)]
+    same = [torch.equal(out, sequential) for out in outs]
+    print(f"spec {name}: ids equal to decode_generate B=1 in {sum(same)} of {runs} run(s) "
+          f"(G {dks.spec_decode.cluster} / {decode_generate.cluster})", flush=True)
+    if not all(same):
+        raise AssertionError(f"spec {name}: ids differ from the sequential kernel's")
+
+
+def spec_vs_sequential(device) -> int:
+    """Phase 6a': the speculative kernel's ids equal ``decode_generate``'s
+    in float32 and bfloat16, relative attention off and on: greedy and
+    sampled (top-k 30, top-p 0.9) at blocks 2, 3, 5 and 11, 64 steps with
+    cache 128; greedy T=5 and sampled T=3 at the main path's shape, twice
+    each. Returns the count of cases."""
+    from composer_tpu_torch.ops import decode_kernel as dk
+
+    cases = 0
+    greedy, sampled = (0.0, 0, 0.0), (1.0, 30, 0.9)
+    for use_relative in (False, True):
+        model, _ = build_model(use_relative, device)
+        config = model.config
+        prompt = np.random.default_rng(12).integers(0, 390, 10)
+        main = np.random.default_rng(2).integers(0, 390, PROMPT_EVENTS)
+        for dtype in (torch.float32, torch.bfloat16):
+            packed = dk.pack_weights(model.state_dict(), config, dtype=dtype, device=device)
+            kind = f"{str(dtype)[6:]} rel={use_relative}"
+            for block in (2, 3, 5, 11):
+                for seed, sampling, how in ((0, greedy, "greedy"), (5, sampled, "sampled")):
+                    spec_sequential_case(f"{kind} T={block} {how}", packed, config, prompt, seed,
+                                         sampling, block, 64, 128)
+                    cases += 1
+            for block, seed, sampling, how in ((5, 0, greedy, "greedy"),
+                                               (3, 11, sampled, "sampled")):
+                spec_sequential_case(
+                    f"{kind} T={block} {how} main shape 1 x ({PROMPT_EVENTS} + "
+                    f"{GENERATE_EVENTS})", packed, config, main, seed, sampling, block,
+                    GENERATE_EVENTS, 1024, runs=2)
+                cases += 1
+    return cases
+
+
+class ParentSpecLibrary:
+    """Another checkout's one-block speculative kernel behind this
+    checkout's wrapper: its entry point takes the same arguments but the
+    three launch ints (cluster, heads and rows per pass) and the clock
+    before the stream; the wrapper's cluster-size query goes to this
+    checkout's kernel."""
+
+    def __init__(self, lib, own):
+        self.lib = lib
+        self.spec_decode_clusters = own.spec_decode_clusters
+
+    def spec_decode(self, *args):
+        return self.lib.spec_decode(*args[:-5], args[-1])
+
+
+def parent_spec_library(checkout):
+    """``csrc/spec_decode.cu`` of ``checkout`` (the parent commit, unpacked
+    with ``git archive``), built with its own headers into
+    ``build/parent_spec/`` and loaded."""
+    import ctypes
+
+    from composer_tpu_torch.ops import _build
+
+    source = Path(checkout).resolve() / "composer_tpu_torch" / "csrc" / "spec_decode.cu"
+    target = _build.BUILD_DIR.parent / "parent_spec" / "libspec_decode.so"
+    target.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(target), str(source)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(target))
+    ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.spec_decode.restype = i32
+    lib.spec_decode.argtypes = [i32, i32] + [ptr] * 18 + [i32] * 11 + [u32] + [f32] * 5 + [ptr]
+    return lib
+
+
 def spec_block_starts(prompt, tokens, block: int) -> list:
     """The start position of every verify block of a greedy speculative run,
     replayed on the host from its prompt and output: the drafts follow the
@@ -1322,13 +1431,16 @@ def spec_bf16_check(name, packed, config, prompt, tokens) -> float:
     return gap
 
 
-def spec_path(device, card: str, trained) -> dict:
+def spec_path(device, card: str, trained, parent=None) -> dict:
     """Phase 6b: batch-1 greedy generation through ``generate_ids(engine=
     "auto")``, which runs the speculative kernel, on random weights and on
     phase 5's restored model, against the sequential kernel on the same
-    request; then the kernel, its plain version and the sequential kernel
-    timed at the main path's shape."""
+    request (the ids must be equal); then the kernel, its plain version and
+    the sequential kernel timed at the main path's shape, and, given
+    ``parent`` (``parent_spec_library``), another checkout's kernel on the
+    same inputs in turns (parent, this, this, parent)."""
     from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.ops import _build
     from composer_tpu_torch.ops import decode_kernel as dk
     from composer_tpu_torch.ops import decode_kernel_spec as dks
     from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
@@ -1379,6 +1491,9 @@ def spec_path(device, card: str, trained) -> dict:
         print(f"spec {name}: bf16 ids agreement with the sequential kernel {agree:.4f} "
               f"(first difference at {first}); {len(set(generated.tolist()))} distinct; "
               f"MIDI {size} bytes", flush=True)
+        if agree != 1.0:
+            raise AssertionError(f"spec {name}: ids differ from the sequential kernel's at "
+                                 f"{first}")
         print(f"spec {name}: generate_ids B=1 x {GENERATE_EVENTS} greedy, host clock: spec "
               f"{spec_s:.4f} / {spec_s2:.4f} s ({GENERATE_EVENTS / spec_s:.1f} / "
               f"{GENERATE_EVENTS / spec_s2:.1f} events/s), sequential {seq_s:.4f} / "
@@ -1395,7 +1510,24 @@ def spec_path(device, card: str, trained) -> dict:
     tokens, stats = dks.spec_decode(*args, **kwargs)
     spec_bf16_check(f"kernel T={block}, random weights", packed, engine.config, prompt,
                     tokens.cpu().numpy())
+
+    def parent_ms():
+        load_library = _build.load_library
+        shim = ParentSpecLibrary(parent, load_library("spec_decode"))
+        _build.load_library = lambda name: shim
+        try:
+            ms = cuda_ms(lambda: dks.spec_decode(*args, **kwargs), 3)
+            parent_tokens = dks.spec_decode(*args, **kwargs)[0]
+        finally:
+            _build.load_library = load_library
+        return ms, float((parent_tokens == tokens).float().mean())
+
+    parent_times = [parent_ms()] if parent is not None else []
     spec_ms = cuda_ms(lambda: dks.spec_decode(*args, **kwargs), 3)
+    cluster = dks.spec_decode.cluster
+    spec_ms2 = cuda_ms(lambda: dks.spec_decode(*args, **kwargs), 3)
+    if parent is not None:
+        parent_times.append(parent_ms())
     temps, topk, topp = dk.row_params(1, 512, 0.0, 0, 0.0, True, False, False, device)
     plens = torch.full((1,), PROMPT_EVENTS, dtype=torch.int32, device=device)
     seq_ms = cuda_ms(lambda: decode_generate(
@@ -1410,14 +1542,31 @@ def spec_path(device, card: str, trained) -> dict:
     blocks = int(stats[0])
     bound_ms, bound_by = spec_bound(engine, prompt, tokens.cpu().numpy(), blocks, block)
     steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
-    print(f"spec kernel B=1 x {GENERATE_EVENTS} bf16 greedy T={block}: {spec_ms:.2f} ms, "
-          f"{blocks} blocks ({spec_ms / blocks * 1e3:.1f} us per block); sequential kernel "
-          f"{seq_ms:.2f} ms ({seq_ms / steps * 1e3:.1f} us per step); block / step "
-          f"{spec_ms / blocks / (seq_ms / steps):.3f}; plain version {plain_ms:.2f} ms "
-          f"(ids agreement {float((plain_tokens == tokens).float().mean()):.4f}); bound "
+    ratio = spec_ms / blocks / (seq_ms / steps)
+    print(f"spec kernel B=1 x {GENERATE_EVENTS} bf16 greedy T={block}, cluster G {cluster}: "
+          f"{spec_ms:.2f} / {spec_ms2:.2f} ms, {blocks} blocks ({spec_ms / blocks * 1e3:.1f} us "
+          f"per block); sequential kernel {seq_ms:.2f} ms ({seq_ms / steps * 1e3:.1f} us per "
+          f"step); block / step {ratio:.3f}, the break-even acceptance (this content's: "
+          f"{GENERATE_EVENTS / int(stats[1]):.3f}); plain version {plain_ms:.2f} ms (ids "
+          f"agreement {float((plain_tokens == tokens).float().mean()):.4f}); bound "
           f"{bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    clock = torch.zeros(len(dks.PHASES), dtype=torch.int64, device=device)
+    dks.spec_decode(*args, **kwargs, phase_ns=clock)
+    clock_ms = clock.double().cpu().numpy() / 1e6
+    print(f"spec kernel T={block} by phase (rank 0's clock, {blocks} verify blocks): " + ", ".join(
+        f"{name} {ms:.2f} ms ({ms / clock_ms.sum():.3f})" for name, ms in zip(dks.PHASES, clock_ms))
+        + f"; {clock_ms.sum():.2f} ms in all [{card}]", flush=True)
+    if parent is not None:
+        print("spec kernel, the parent checkout's one-block kernel on the same inputs "
+              f"(parent, this, this, parent): {parent_times[0][0]:.2f}, {spec_ms:.2f}, "
+              f"{spec_ms2:.2f}, {parent_times[1][0]:.2f} ms; the parent's ids agree with "
+              f"this kernel's {parent_times[0][1]:.4f} (bf16: other summation order) "
+              f"[{card}]", flush=True)
+    else:
+        print("spec kernel, parent: not measured (no --parent checkout given)", flush=True)
     return {"launches": launches, "ms": spec_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "cluster": cluster,
+            "parent_ms": [t[0] for t in parent_times] or None}
 
 
 SEGMENT_STEPS = 64  # the JAX `serve` defaults: composer_tpu/cli.py:634-649
@@ -2539,6 +2688,14 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     if sys.argv[1:] == ["--flash-planted-faults"]:
         return flash_planted_faults(device, card)
+    parent_spec = None
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        from concurrent.futures import ThreadPoolExecutor
+
+        parent_spec = ThreadPoolExecutor(1).submit(parent_spec_library, sys.argv[2])
+    elif sys.argv[1:]:
+        print(__doc__, file=sys.stderr)
+        return 2
     start = time.perf_counter()
     libraries = ("decode_generate", "flash_attention", "spec_decode", "decode_segment",
                  "decode_wide", "decode_wide_segment")
@@ -2562,7 +2719,9 @@ def main() -> int:
         ("scalar", 16): flash_timings(device, card, torch.float32, FLASH_SHAPE),
     }
     spec_error = spec_vs_plain(device)
-    spec = spec_path(device, card, training["restored"])
+    spec_vs_sequential(device)
+    spec = spec_path(device, card, training["restored"],
+                     parent_spec.result() if parent_spec is not None else None)
     segment_error = segment_vs_plain(device)
     segment = segment_timings(device, card)
     serve = serve_path(device, card)
@@ -2617,7 +2776,7 @@ def main() -> int:
         "replaces": "composer_tpu/ops/decode_kernel_spec.py:120", "launches": spec["launches"],
         "max_abs_err": spec_error, "ms": spec["ms"], "plain_ms": spec["plain_ms"],
         "bound_ms": spec["bound_ms"], "bound_by": spec["bound_by"], "library_ms": None,
-        "cluster": None})
+        "cluster": spec["cluster"], "parent_ms": spec["parent_ms"]})
     kernels.append({
         "name": "decode_segment", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_segment.cu",

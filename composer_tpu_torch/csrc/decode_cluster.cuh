@@ -437,14 +437,13 @@ inline bool cluster_takes(int G, int E, int H, int D, int keys, int V, int stati
          sizeof(float) * budget_floats(E, H, keys, V) + static_bytes <= (size_t)kMaxSharedBytes;
 }
 
-// The launch configuration (grid, block, dynamic shared memory of a block
-// owning H/G heads, cluster dimension) in cfg and attr; sets the kernel's
+// The launch configuration (grid, block, `smem` bytes of dynamic shared
+// memory a block, cluster dimension) in cfg and attr; sets the kernel's
 // attributes for it and returns the error of doing so.
 template <typename Kernel>
-cudaError_t cluster_config(Kernel kernel, int cluster, int batch, int E, int H, int keys, int V,
+cudaError_t cluster_config(Kernel kernel, int cluster, int batch, size_t smem,
                            cudaStream_t stream, cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attr) {
-  const size_t smem = sizeof(float) * cluster_smem_floats(E, H / cluster, keys, V);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   // Clusters of more than 8 blocks are outside the portable limit.
@@ -464,28 +463,46 @@ cudaError_t cluster_config(Kernel kernel, int cluster, int batch, int E, int H, 
   return err;
 }
 
-// Launches kernel(args) as `batch` clusters of `cluster` blocks on stream;
-// returns the launch's error.
+// Launches kernel(args) as `batch` clusters of `cluster` blocks with `smem`
+// bytes of dynamic shared memory a block on stream; returns the launch's
+// error.
 template <typename Kernel, typename Args>
-int cluster_launch(Kernel kernel, int cluster, int batch, int E, int H, int keys, int V,
-                   cudaStream_t stream, const Args& args) {
+int cluster_launch(Kernel kernel, int cluster, int batch, size_t smem, cudaStream_t stream,
+                   const Args& args) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(kernel, cluster, batch, E, H, keys, V, stream, &cfg, &attr);
+  cudaError_t err = cluster_config(kernel, cluster, batch, smem, stream, &cfg, &attr);
   if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The count of clusters of `cluster` blocks of kernel that can be resident
-// at once (cudaOccupancyMaxActiveClusters) in *count; returns the error.
+// cluster_launch with cluster_step's layout: a block owning H/G heads.
+template <typename Kernel, typename Args>
+int cluster_launch(Kernel kernel, int cluster, int batch, int E, int H, int keys, int V,
+                   cudaStream_t stream, const Args& args) {
+  return cluster_launch(kernel, cluster, batch,
+                        sizeof(float) * cluster_smem_floats(E, H / cluster, keys, V), stream,
+                        args);
+}
+
+// The count of clusters of `cluster` blocks of kernel, with `smem` bytes
+// of dynamic shared memory a block, that can be resident at once
+// (cudaOccupancyMaxActiveClusters) in *count; returns the error.
 template <typename Kernel>
-int cluster_occupancy(Kernel kernel, int cluster, int E, int H, int keys, int V, int* count) {
+int cluster_occupancy(Kernel kernel, int cluster, size_t smem, int* count) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(kernel, cluster, 1, E, H, keys, V, nullptr, &cfg, &attr);
+  cudaError_t err = cluster_config(kernel, cluster, 1, smem, nullptr, &cfg, &attr);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(count, (void*)kernel, &cfg);
   return (int)err;
+}
+
+// cluster_occupancy with cluster_step's layout.
+template <typename Kernel>
+int cluster_occupancy(Kernel kernel, int cluster, int E, int H, int keys, int V, int* count) {
+  return cluster_occupancy(kernel, cluster,
+                           sizeof(float) * cluster_smem_floats(E, H / cluster, keys, V), count);
 }
 
 }  // namespace decode_cluster

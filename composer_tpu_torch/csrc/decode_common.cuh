@@ -1,10 +1,10 @@
 // Device helpers shared by the decode kernels (decode_cluster.cuh, whose step
 // body decode_generate.cu and decode_segment.cu run, spec_decode.cu and the
 // wide kernels): block reductions, vector loads, the bf16/f32 conversions,
-// tanh-GELU, LayerNorm, the Philox4x32-10 Gumbel noise and the sampling of
-// one row of logits. All kernels draw the same bits from one definition, so
-// the speculative, segmented and wide kernels' samples equal the sequential
-// kernel's.
+// tanh-GELU, LayerNorm, the Philox4x32-10 Gumbel noise, the sampling of one
+// row of logits and the optional phase clock. All kernels draw the same bits
+// from one definition, so the speculative, segmented and wide kernels'
+// samples equal the sequential kernel's.
 //
 // Every block that uses these runs kThreads threads.
 
@@ -205,6 +205,33 @@ __device__ void layer_norm_rows(const float* x, float* out, float* xw, int rows,
   }
   __syncthreads();
 }
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A kernel's optional clock (phase_ns in the wrappers of decode_wide,
+// decode_segment_wide and spec_decode): block 0's thread 0 adds the time
+// since its last mark to the phase kind it marks. Marked right after a
+// barrier, a phase's time is the slowest block's work plus the barrier. The
+// phase kinds are each wrapper's PHASES.
+struct PhaseClock {
+  unsigned long long* slots;
+  bool on;
+  unsigned long long last;
+  __device__ explicit PhaseClock(unsigned long long* clock)
+      : slots(clock), on(clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0),
+        last(on ? global_ns() : 0) {}
+  __device__ __forceinline__ void mark(int phase) {
+    if (on) {
+      const unsigned long long now = global_ns();
+      slots[phase] += now - last;
+      last = now;
+    }
+  }
+};
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   for (int r = 0; r < 10; ++r) {

@@ -3,7 +3,7 @@
 // of a continuous batch): the 16-byte weight and activation loads, the copy of
 // rows written inside the launch, the LayerNorm of B rows, the matmul phase
 // that reads each weight once for all rows, the merge of the attention's key
-// splits, the scratch and shared-memory layouts, and the optional phase clock.
+// splits, and the scratch and shared-memory layouts.
 // Both kernels run one persistent kThreads-thread block per SM, launched
 // cooperatively, with grid barriers between the phases of a layer.
 
@@ -17,33 +17,6 @@ using namespace decode_common;
 
 constexpr int kMaxBatch = 8;    // MAX_BATCH in ops/decode_kernel_wide.py
 constexpr int kMaxSplits = 16;  // MAX_SPLITS
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// The optional clock (phase_ns in the wrappers): block 0's thread 0 adds the
-// time from one grid barrier's exit to the next one's to the barrier's phase
-// kind (the slowest block's work plus the barrier itself). The phases of a
-// step are PHASES in ops/decode_kernel_wide.py: 0 ln_1 + qkv, 1 attention,
-// 2 proj, 3 ln_2 + fc, 4 fp, 5 logits, 6 sampling.
-struct PhaseClock {
-  unsigned long long* slots;
-  bool on;
-  unsigned long long last;
-  __device__ explicit PhaseClock(unsigned long long* clock)
-      : slots(clock), on(clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0),
-        last(on ? global_ns() : 0) {}
-  __device__ __forceinline__ void mark(int phase) {
-    if (on) {
-      const unsigned long long now = global_ns();
-      slots[phase] += now - last;
-      last = now;
-    }
-  }
-};
 
 // A weight type's 16-byte load (VN elements) and the columns (NC) one warp
 // computes together, so that each x value read from shared memory feeds NC

@@ -105,7 +105,11 @@ ENTRY_POINTS = {
         "decode_wide_segment": [_I32] * 3 + [_PTR] * 25 + [_I32] * 14 + [_U32, _F32, _F32, _PTR],
     },
     "spec_decode": {
-        "spec_decode": [_I32, _I32] + [_PTR] * 18 + [_I32] * 11 + [_U32] + [_F32] * 5 + [_PTR],
+        "spec_decode": (
+            [_I32, _I32] + [_PTR] * 18 + [_I32] * 11 + [_U32] + [_F32] * 5 + [_I32] * 3
+            + [_PTR] * 2
+        ),
+        "spec_decode_clusters": [_I32] * 11 + [_PTR],
     },
     "flash_attention": {
         "flash_attention_forward": (

@@ -78,27 +78,34 @@ def cluster_size(batch: int, heads: int, sm_count: int, max_active) -> int:
 _MAX_ACTIVE: dict = {}
 
 
-def launch_cluster_size(library: str, config, batch: int, keys: int, wdtype, device) -> int:
-    """``cluster_size`` for a launch of ``library``'s kernel (``decode_generate``
-    or ``decode_segment``) on ``device``, with ``max_active`` queried from the
-    card once per kernel type, widths and ``keys`` (score slots per head)."""
+def launch_cluster_size(library: str, config, batch: int, keys: int, wdtype, device,
+                        extra=None) -> int:
+    """``cluster_size`` for a launch of ``library``'s kernel (``decode_generate``,
+    ``decode_segment`` or ``spec_decode``) on ``device``, with ``max_active``
+    queried from the card once per kernel type, widths and ``keys`` (score
+    slots per head). ``extra(g)`` gives the query's further int arguments at
+    G = g (the speculative kernel's block and passes), or None where the
+    kernel cannot run at g, which then counts no resident cluster."""
     import ctypes
 
     from composer_tpu_torch.ops._build import load_library
 
     index = device.index if device.index is not None else torch.cuda.current_device()
     bf16 = 1 if wdtype == torch.bfloat16 else 0
-    key = (library, bf16, index, config.embed_dim, config.num_heads, config.head_dim, keys,
-           vocab_pad(config))
+    sizes = [g for g in CLUSTER_SIZES if config.num_heads % g == 0]
+    more = {g: extra(g) if extra is not None else () for g in sizes}
+    widths = (config.embed_dim, config.num_heads, config.head_dim, keys, vocab_pad(config))
+    key = (library, bf16, index, *widths, tuple(more.items()))
     max_active = _MAX_ACTIVE.get(key)
     if max_active is None:
         query = getattr(load_library(library), f"{library}_clusters")
         max_active = {}
-        for g in CLUSTER_SIZES:
-            if config.num_heads % g:
+        for g in sizes:
+            if more[g] is None:
+                max_active[g] = 0
                 continue
             count = ctypes.c_int(0)
-            err = query(bf16, index, g, *key[3:], ctypes.byref(count))
+            err = query(bf16, index, g, *widths, *more[g], ctypes.byref(count))
             if err != 0:
                 raise RuntimeError(f"{library}: cluster occupancy query failed for G={g}: "
                                    f"CUDA error {err}")

@@ -4,31 +4,37 @@ one forward pass per block.
 Port of ``composer_tpu/ops/decode_kernel_spec.py``. The TPU kernel
 ``_spec_decode_kernel`` is replaced by the Hopper kernel ``spec_decode``
 (``csrc/spec_decode.cu``, CUDA C++ for ``sm_90a``), whose header states how
-it computes and what bounds it. One launch runs the whole generation. Each
-verify block of ``T`` positions from ``p0``:
+it computes and what bounds it. One launch runs the whole generation on one
+thread-block cluster of G blocks (``cluster_size`` at batch 1, as
+``decode_generate`` takes it). Each verify block of ``T`` positions from
+``p0``:
 
 1. drafts ``T - 1`` tokens by suffix lookup: the latest ``j`` in
    ``[1, p0 - (T - 1)]`` whose 2-gram (falling back to the 1-gram) context
    matches the stream's tail; block input ``t`` is the prompt token inside
    the prompt (and at ``t = 0``), ``ids[j + t]`` after it;
 2. runs one forward pass over the ``T`` rows, appending K and V for all of
-   them;
+   them: row ``t`` is ``decode_generate``'s step at position ``p0 + t``
+   (``csrc/decode_cluster_rows.cuh``), each weight and K/V row loaded once
+   for all rows;
 3. samples every row; the draft is a point mass, so the sampled stream keeps
    ``s_t`` while the earlier samples equal their drafted successors: each
    block emits 1 to ``T`` tokens.
 
 Row ``t`` draws the Gumbel noise of row 0 at step ``p0 + t``, the bits the
-sequential kernel draws at that position. An emitted sample therefore sees
-the sequential kernel's noise, and sampled speculative ids equal the
-sequential kernel's (exactly in float32, up to argmax near-ties under
-bfloat16). The JAX kernel could promise only the same distribution: its TPU
-PRNG draws ``T`` rows per block.
+sequential kernel draws at that position, and its sums are taken in the
+sequential kernel's order, so an emitted row's logits equal that kernel's:
+greedy and sampled speculative ids equal ``decode_generate``'s at batch 1 bit
+for bit, in float32 and bfloat16. The JAX kernel could promise only the same
+distribution: its TPU PRNG draws ``T`` rows per block.
 
 Beside the kernel: ``speculative_generate_reference``, the plain PyTorch
 version; ``spec_decode``, the wrapper (a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel, counted in ``spec_decode.launches``, or
 raises); ``speculative_generate``, the JAX entry point's signature without
-``interpret``.
+``interpret``; ``spec_kernel_fits``, the shared-memory admission that
+routing follows, and ``spec_cluster_passes``, how a cluster's blocks fit
+what it admits.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from composer_tpu_torch.ops.decode_kernel_batched import (
     _gelu_tanh,
     _logits_bias,
     _standardize,
+    launch_cluster_size,
 )
 
 # Tokens advanced per verified block (1 real + T-1 drafted), as measured on
@@ -62,12 +69,18 @@ from composer_tpu_torch.ops.decode_kernel_batched import (
 # H100 yet. COMPOSER_SPEC_BLOCK forces one size for both regimes.
 SPEC_BLOCK_GREEDY = 5
 SPEC_BLOCK_SAMPLED = 3
-SPEC_BLOCK_MIN, SPEC_BLOCK_MAX = 2, 16  # kMaxBlock in csrc/spec_decode.cu
+SPEC_BLOCK_MIN, SPEC_BLOCK_MAX = 2, 16  # kMaxRows in csrc/decode_cluster_rows.cuh
 ROW_CHUNK = 8  # kRowChunk: rows one pass over a weight feeds
-ROW_COLS = 4  # kCols: output columns a thread owns in the kernel's gemm
 # kStaticSharedBytes: the block's input tokens, samples and match flag
 # (132 bytes), padded to the 16-byte boundary where the dynamic buffer starts.
 SPEC_STATIC_SHARED_BYTES = (4 * (2 * SPEC_BLOCK_MAX + 1) + 15) // 16 * 16
+# kRowRed: floats of the LayerNorms' warp sums of up to 16 rows, twice.
+ROW_RED = 2 * SPEC_BLOCK_MAX * (KERNEL_THREADS // 32)
+# The phase kinds of a verify block that the kernel's optional clock times
+# (``phase_ns``), in the order of csrc/spec_decode.cu and
+# csrc/decode_cluster_rows.cuh; the layer phases summed over the layers.
+PHASES = ("draft", "embedding + ln_1 + qkv", "scores", "softmax", "AV + share", "proj + share",
+          "ln_2 + fc + share", "fp + share", "ln_f + logits + share", "sampling + emit")
 
 
 def _parse_block_env():
@@ -97,28 +110,77 @@ def default_block(greedy: bool) -> int:
 
 
 def spec_smem_bytes(config, cache_len: int, block: int) -> int:
-    """Shared memory of the kernel's block, static and dynamic; mirrors
-    ``smem_floats`` and ``BlockState`` in spec_decode.cu. The id stream and
-    the K/V rows span ``cache_len + block`` positions (the last block may run
+    """The shared-memory budget a (cache, block) is admitted by, static and
+    dynamic: the layout of the kernel's first, one-block design (an ``H x
+    (cache_len + block)`` score row, ``block`` rows of activations and
+    logits, the id stream, partial sums of 4 columns a thread). Routing
+    follows it, so it stays as it was; every cluster size the launch takes
+    fits what it admits (``spec_cluster_passes``). The id stream and the K/V
+    rows span ``cache_len + block`` positions (the last block may run
     ``block - 1`` past the last token)."""
     E, H, V, T = config.embed_dim, config.num_heads, vocab_pad(config), block
     rows = cache_len + T
     floats = (64 + (rows + 3) // 4 * 4 + 7 * E * T + max(4 * E * T, KERNEL_THREADS * 8)
               + T * V + 3 * V
-              + max(H * rows, min(T, ROW_CHUNK) * KERNEL_THREADS * ROW_COLS))
+              + max(H * rows, min(T, ROW_CHUNK) * KERNEL_THREADS * 4))
     return 4 * floats + SPEC_STATIC_SHARED_BYTES
 
 
 def spec_kernel_fits(config, cache_len: int, block: int) -> bool:
-    """The kernel's limits: one row's ``H x (cache_len + block)`` float32
-    scores, ``block`` rows of activations and logits and the id stream must
-    fit 227 KB of shared memory with the block's static state (default
-    model: block 3 up to cache_len 2671, block 5 up to 2338, block 11 up to
-    1157; block 12 and above not at cache 1024), head_dim a multiple of 8
-    and block in [2, 16]."""
+    """The kernel's admission: the budget of ``spec_smem_bytes`` within 227
+    KB of shared memory (default model: block 3 up to cache_len 2671, block
+    5 up to 2338, block 11 up to 1157; block 12 and above not at cache
+    1024), head_dim a multiple of 8 and block in [2, 16]."""
     return (SPEC_BLOCK_MIN <= block <= SPEC_BLOCK_MAX
             and spec_smem_bytes(config, cache_len, block) <= MAX_SHARED_BYTES
             and config.head_dim % 8 == 0)
+
+
+def _layout_splits(n: int) -> int:
+    """``layout_splits``: a column's slices in 16-byte units of bf16."""
+    groups = n // 8
+    return 1 if groups >= KERNEL_THREADS else KERNEL_THREADS // groups
+
+
+def _partial_floats(n: int, cols: int, rows: int) -> int:
+    splits = _layout_splits(n)
+    return 0 if splits == 1 else rows * splits * cols
+
+
+def spec_cluster_smem_bytes(config, cache_len: int, block: int, cluster: int,
+                            passes=None) -> int:
+    """Shared memory of one block of a ``cluster``-block launch, static and
+    dynamic; mirrors ``rows_smem_floats`` in csrc/decode_cluster_rows.cuh.
+    ``passes`` = (heads per pass, rows per pass), by default
+    ``spec_cluster_passes``' choice (the smallest layout where none fits)."""
+    E, D, V, T, G = (config.embed_dim, config.head_dim, vocab_pad(config), block, cluster)
+    keys = cache_len + T
+    heads, rows = passes or spec_cluster_passes(config, cache_len, block, cluster) or (1, 1)
+    partial = max(_partial_floats(n, n // G, rows) for n in (3 * E, E, 4 * E, V))
+    scores = heads * T * keys + _partial_floats(E, heads * D, rows)
+    floats = (ROW_RED + (keys + 3) // 4 * 4 + 5 * T * E + T * E // G + 4 * T * E + T * V
+              + 3 * V + max(scores, partial))
+    return 4 * floats + SPEC_STATIC_SHARED_BYTES
+
+
+def spec_cluster_passes(config, cache_len: int, block: int, cluster: int):
+    """``(heads_per_pass, rows_per_pass)`` of a launch on clusters of
+    ``cluster`` blocks: the most rows a pass over the weights feeds (up to
+    ``ROW_CHUNK``), then the most of a block's heads whose scores one pass
+    holds, such that a block fits the card's shared memory; None where none
+    does or ``cluster`` does not divide the heads and the padded vocabulary
+    into 8-column groups. At cluster 16 the default model takes (1, min(block,
+    8)) at every cache it admits."""
+    H, T = config.num_heads, block
+    if H % cluster or vocab_pad(config) % (8 * cluster):
+        return None
+    per_block = H // cluster
+    for rows in range(min(T, ROW_CHUNK), 0, -1):
+        for heads in range(per_block, 0, -1):
+            if per_block % heads == 0 and spec_cluster_smem_bytes(
+                    config, cache_len, block, cluster, (heads, rows)) <= MAX_SHARED_BYTES:
+                return heads, rows
+    return None
 
 
 def draft_inputs(ids: np.ndarray, p0: int, plen: int, block: int) -> np.ndarray:
@@ -270,7 +332,7 @@ def speculative_generate_reference(packed, prompt, seed: int, temp: float, topk:
 
 
 def spec_decode(packed, prompt, seed: int, temp: float, topk: float, topp: float, *,
-                config, length: int, cache_len: int, block: int):
+                config, length: int, cache_len: int, block: int, phase_ns=None):
     """Runs the speculative generation of ``length`` ids after ``prompt``
     (an int32 ``(plen,)`` tensor on the weights' device). ``temp <= 0`` is
     greedy; ``topk``/``topp`` carry the filter sentinels of ``row_params``.
@@ -278,7 +340,11 @@ def spec_decode(packed, prompt, seed: int, temp: float, topk: float, topp: float
     ``stats = [blocks, generation blocks, final position, 0...]``.
 
     On CPU tensors this is the plain version. On CUDA tensors it launches
-    the kernel (counted in ``spec_decode.launches``) or raises.
+    the kernel on one cluster of G blocks (``cluster_size`` at batch 1,
+    kept in ``spec_decode.cluster``), counted in ``spec_decode.launches``,
+    or raises. ``phase_ns`` (optional ``(len(PHASES),)`` int64 on the card)
+    accumulates the nanoseconds the cluster's first block spends in each
+    phase kind of its verify blocks.
     """
     device = packed["wte"].device
     if device.type == "cpu":
@@ -310,8 +376,24 @@ def spec_decode(packed, prompt, seed: int, temp: float, topk: float, topp: float
         raise ValueError("packed weights do not match the config")
     if config.use_relative_attention and packed["rel_rows"].shape[1] != config.window_size:
         raise ValueError("rel_rows must hold window_size rows with relative attention on")
+    if phase_ns is not None and (phase_ns.device != device or phase_ns.dtype != torch.int64
+                                 or phase_ns.shape != (len(PHASES),)):
+        raise ValueError(f"phase_ns must be a ({len(PHASES)},) int64 tensor on {device}")
 
     rows = cache_len + block
+
+    def extra(g):
+        passes = spec_cluster_passes(config, cache_len, block, g)
+        return None if passes is None else (block, *passes)
+
+    cluster = launch_cluster_size("spec_decode", config, 1, rows, wdtype, device, extra)
+    passes = spec_cluster_passes(config, cache_len, block, cluster)
+    if passes is None:
+        raise ValueError(
+            f"cache_len {cache_len} at block {block} does not fit a block of a {cluster}-block "
+            f"cluster ({spec_cluster_smem_bytes(config, cache_len, block, cluster)} bytes of "
+            f"shared memory at the smallest passes; {MAX_SHARED_BYTES} available), or "
+            f"{cluster} does not divide the heads and vocabulary")
     # Scratch: every K/V row and id the kernel reads it has written first.
     kcache = torch.empty((L, rows, E), dtype=wdtype, device=device)
     vcache = torch.empty((L, rows, E), dtype=wdtype, device=device)
@@ -342,15 +424,20 @@ def spec_decode(packed, prompt, seed: int, temp: float, topk: float, topp: float
         ctypes.c_float(float(topp)),
         ctypes.c_float(float(config.head_dim) ** -0.5 if config.scale_attention else 1.0),
         ctypes.c_float(config.layer_norm_epsilon),
+        *(ctypes.c_int(v) for v in (cluster, *passes)),
+        ptr(phase_ns.data_ptr() if phase_ns is not None else 0),
         ptr(torch.cuda.current_stream(device).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"spec_decode kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"spec_decode kernel launch failed (cluster {cluster}, passes "
+                           f"{passes}): CUDA error {err}")
+    spec_decode.cluster = cluster
     spec_decode.launches += 1
     return out[:length], out[length:]
 
 
 spec_decode.launches = 0
+spec_decode.cluster = None  # G of the last launch
 
 
 def speculative_generate(packed, prompt, seed, temperature, *, config, length: int,
@@ -366,8 +453,9 @@ def speculative_generate(packed, prompt, seed, temperature, *, config, length: i
     CPU runs the plain version, CUDA the kernel.
 
     Greedy ids (``temperature <= 0``) equal the sequential kernel's
-    (``megakernel_generate``) in float32, and so do sampled ids: both draw
-    the Philox noise of (seed, row 0, position).
+    (``megakernel_generate``), and so do sampled ids: both draw the Philox
+    noise of (seed, row 0, position), and the kernel sums each row in the
+    sequential kernel's order.
     """
     prompt = np.asarray(prompt, np.int32).reshape(-1)
     plen = prompt.shape[0]

@@ -461,9 +461,16 @@ def _use_spec_kernel(model, model_type, batch: int, cache_len: int, engine: str,
     """The JAX package's gate for the speculative engine: batch 1 only, a
     transformer with layer norm, a cache the kernel fits. ``spec`` opts in
     for any sampling; ``auto`` only for greedy requests (every temperature
-    <= 0) on a CUDA device, the case where the engine is exact against the
-    sequential kernel. Sampled ``auto`` stays sequential: its contract is
-    never to run slower than the sequential kernel for any content."""
+    <= 0) on a CUDA device. Sampled ``auto`` stays sequential: its contract
+    is never to run slower than the sequential kernel for any content.
+
+    The greedy route is kept by measurement: on a default model trained
+    1156 steps on synthetic tonal music (``scripts/spec_acceptance.py``,
+    held-out loss 0.71), the kernel at the greedy block of 5 accepted 3.50
+    tokens a block and ran 1.88x the sequential kernel (``generate_ids``
+    1.78x) on an H100, where a block costs 1.86 sequential steps; its ids
+    are the sequential kernel's, in either type. On content the draft cannot
+    predict (random weights, 1.13 tokens a block) it runs 0.61x."""
     greedy = temps is not None and bool(np.all(np.asarray(temps) <= 0))
     if engine == "auto":
         # Resident-weight models only, as in the JAX package.

@@ -6,7 +6,9 @@ These tests import no JAX. On a machine with a CUDA card and nvcc:
     python -m pytest tests/test_torch_cuda_spec.py -m cuda --noconftest -q
 
 Without a card they skip. float32 with TF32 off: tokens and stats must be
-identical.
+identical. In float32 and bfloat16 the kernel's ids must equal the
+sequential kernel's (``decode_generate`` at batch 1) bit for bit: every
+emitted row is that kernel's step at its position, summed in its order.
 """
 
 import numpy as np
@@ -69,6 +71,83 @@ def test_kernel_matches_plain_version(cuda_device, use_relative, block):
         assert torch.equal(tokens, plain_tokens), sampling
         assert torch.equal(stats, plain_stats), (sampling, stats, plain_stats)
         assert int(stats[2]) >= 10 - 1 + 64
+
+
+def _sequential(packed, config, prompt, seed, sampling, length, cache_len):
+    """``decode_generate``'s ids for the same request at batch 1."""
+    device = packed["wte"].device
+    temps, topk, topp = dk.row_params(1, packed["wte"].shape[0], *sampling, False, True, True,
+                                      device)
+    prompts = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
+    plens = torch.full((1,), len(prompt), dtype=torch.int32, device=device)
+    ids = decode_generate(packed, prompts, plens, seed, temps, topk, topp, None, None,
+                          config=config, num_steps=len(prompt) + length - 1, out_len=length,
+                          cache_len=cache_len, start_step=0)
+    return ids[0].cpu()
+
+
+def _default_widths(use_relative, device, num_layers=2):
+    """The default model's widths (embed 256, 16 heads of 16, vocab 390:
+    clusters of 16 at batch 1) with few layers, random weights."""
+    config = TransformerConfig(vocab_size=390, num_layers=num_layers,
+                               use_relative_attention=use_relative, initializer_stddev=0.3)
+    model = Transformer(config, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    return model.to(device).eval()
+
+
+@pytest.mark.parametrize("block", [2, 3, 5, 11])
+@pytest.mark.parametrize("use_relative", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_ids_equal_the_sequential_kernel(cuda_device, dtype, use_relative, block):
+    """Greedy and sampled (top-k and top-p) ids of the speculative kernel
+    equal ``decode_generate``'s at batch 1 bit for bit, at the default
+    widths (a cluster of 16 blocks), and two launches give the same ids (a
+    race between the blocks of the cluster shows as ids that differ only
+    sometimes)."""
+    model = _default_widths(use_relative, cuda_device)
+    config = model.config
+    packed = dk.pack_weights(model.state_dict(), config, dtype=dtype, device=cuda_device)
+    prompt = np.random.default_rng(block).integers(0, 390, 10)
+    for seed, sampling in ((0, (0.0, 0, 0.0)), (5, (0.9, 30, 0.9))):
+        temps, topk, topp = dk.row_params(1, packed["wte"].shape[0], *sampling, False, True,
+                                          True, "cpu")
+        args = (packed, torch.as_tensor(prompt, dtype=torch.int32, device=cuda_device), seed,
+                float(temps[0]), float(topk[0]), float(topp[0]))
+        kwargs = dict(config=config, length=64, cache_len=128, block=block)
+        runs = [dks.spec_decode(*args, **kwargs)[0].cpu() for _ in range(2)]
+        assert dks.spec_decode.cluster == 16
+        expected = _sequential(packed, config, prompt, seed, sampling, 64, 128)
+        assert torch.equal(runs[0], runs[1]), sampling
+        assert torch.equal(runs[0], expected), (sampling, runs[0], expected)
+
+
+@pytest.mark.parametrize("cache_len,block", [(2338, 5), (2671, 3), (1157, 11)])
+def test_largest_cache_launches_at_every_cluster_size(cuda_device, monkeypatch, cache_len,
+                                                      block):
+    """The largest cache ``spec_kernel_fits`` admits at each block launches
+    at G = 16 (``cluster_size``'s choice) and at G = 1, the smallest the card
+    runs (passes of fewer heads and rows there), and both give the same ids:
+    the sums do not depend on G."""
+    model = _default_widths(False, cuda_device, num_layers=1)
+    config = model.config
+    packed = dk.pack_weights(model.state_dict(), config, dtype=torch.bfloat16,
+                             device=cuda_device)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(0, 390, 6), dtype=torch.int32,
+                             device=cuda_device)
+    assert dks.spec_kernel_fits(config, cache_len, block)
+    assert not dks.spec_kernel_fits(config, cache_len + 1, block)
+    ids = {}
+    for cluster in (16, 1):
+        if cluster == 1:
+            monkeypatch.setattr(dks, "launch_cluster_size", lambda *args: 1)
+        tokens, stats = dks.spec_decode(packed, prompt, 0, 0.0, 513.0, 2.0, config=config,
+                                        length=40, cache_len=cache_len, block=block)
+        torch.cuda.synchronize()
+        assert dks.spec_decode.cluster == cluster
+        assert int(tokens.max()) < 390 and int(stats[2]) >= 6 - 1 + 40
+        ids[cluster] = tokens.cpu()
+    assert torch.equal(ids[16], ids[1])
 
 
 def test_kernel_emits_whole_blocks_on_a_repetitive_stream(cuda_device):

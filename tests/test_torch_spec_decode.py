@@ -228,7 +228,8 @@ def test_generate_ids_routing_on_the_cpu():
 
 def test_use_spec_kernel_gate():
     """The JAX gate with the device faked to CUDA: auto takes spec only for
-    greedy batch 1 with layer norm and a cache that fits; spec opts in."""
+    greedy batch 1 with layer norm and a cache that fits (the route kept by
+    the H100 measurement in ``_use_spec_kernel``'s docstring); spec opts in."""
     _, _, model, _ = _setup()
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     greedy, sampled = np.zeros(1, np.float32), np.full(1, 0.9, np.float32)

@@ -125,18 +125,21 @@ def test_create_model_defaults_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not ``chip_smoke`` (imported as a module,
-    without running ``main``), loads JAX or anything of the JAX package
-    ``composer_tpu``. conftest imports JAX here, so the check runs in a
-    fresh interpreter."""
+    """No module of the port, and neither ``chip_smoke`` nor
+    ``scripts/spec_acceptance.py`` (imported as modules, without running
+    ``main``), loads JAX or anything of the JAX package ``composer_tpu``.
+    conftest imports JAX here, so the check runs in a fresh interpreter."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import composer_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(composer_tpu_torch.__path__, "
         "'composer_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "importlib.import_module('chip_smoke')\n"
+        "spec = importlib.util.spec_from_file_location('spec_acceptance', "
+        "'scripts/spec_acceptance.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'composer_tpu'))\n"
         "missing = {'composer_tpu_torch.ops.decode_kernel_spec', "
