@@ -96,9 +96,11 @@ Phases (any failure exits non-zero):
    the sequential kernel's and the plain version's times are printed, with
    the block / step ratio (the acceptance at which spec breaks even).
    ``python3 chip_smoke.py --parent <checkout>`` also builds that
-   checkout's ``csrc/spec_decode.cu`` (the parent commit, unpacked with
-   ``git archive`` into a directory ``.gitignore`` lists) and times it on
-   the same inputs, parent, this, this, parent.
+   checkout's ``csrc/spec_decode.cu``, ``csrc/decode_wide.cu`` and
+   ``csrc/decode_wide_segment.cu`` (the parent commit, unpacked with
+   ``git archive`` into a directory ``.gitignore`` lists;
+   ``parent_libraries``) and times them on the same inputs as this
+   checkout's, parent, this, this, parent (here and in phases 8c and 9b).
 7. The segmented decode kernel ``decode_segment`` (csrc/decode_segment.cu)
    and ``ContinuousGenerationService``. (a) Kernel against plain version in
    float32 at the default widths: 8 slots, ragged prompts, a slot parked
@@ -145,10 +147,16 @@ Phases (any failure exits non-zero):
    forward with the kernel's noise, passes ``sampled_token_gap``; events/s
    and the device's busy share are printed. (c) CUDA-event times at B=8 and
    B=1 of the kernel in bf16, int8 weights and int8 weights + int8 K/V
-   against ``wide_bound``, the kernel's own clock by phase, the plain
-   version and one ``decode_generate`` launch on the same weights (the
-   route ``auto`` took before the wide kernel); then the default model's
-   wide time beside ``decode_generate``'s.
+   against ``wide_bound``; the bf16 runs twice, whose ids must be
+   identical (a race between blocks shows as ids that differ only
+   sometimes); the kernel's own clock by phase with its grid barriers a
+   step (``wide_clock_line``); with ``--parent``, the parent checkout's
+   kernel on the same bf16 inputs (parent, this, this, parent; this one
+   must be faster at both batches) and the agreement of its float32 greedy
+   ids with this kernel's; the plain version and one ``decode_generate``
+   launch on the same weights (the route ``auto`` took before the wide
+   kernel); then the default model's wide time beside
+   ``decode_generate``'s.
 
 9. The streamed-weight segment kernel ``decode_wide_segment``
    (csrc/decode_wide_segment.cu) and ``ContinuousGenerationService``'s wide
@@ -161,10 +169,13 @@ Phases (any failure exits non-zero):
    ``decode_segment``'s, and greedy ids equal one ``decode_wide`` launch
    (each row from its own position 0). int8 weights on the flagship pass
    the bf16 rule teacher-forced (``wide_teacher_forced_gap``). (b) bf16 on
-   the flagship, 8 x (10 + 1014) in 16 segments of 64 at cache 2048: ms per
-   segment (CUDA events around each launch) against the plain version,
-   ``wide_segment_bound`` and one ``decode_wide`` launch for the same
-   generation, with the greedy ids' agreement. (c)
+   the flagship, 8 x (10 + 1014) in 16 segments of 64 at cache 2048, run
+   twice with identical ids: ms per segment (CUDA events around each
+   launch) against the plain version, ``wide_segment_bound`` and one
+   ``decode_wide`` launch for the same generation, with the greedy ids'
+   agreement, and the first segment's clock; with ``--parent``, the parent
+   checkout's kernel per segment on the same inputs (parent, this, this,
+   parent; this one must be faster). (c)
    ``ContinuousGenerationService(engine="auto")`` on the flagship with the
    `serve` defaults must take the wide engine: a 16-request burst (8
    greedy, 8 sampled), the wide segment kernel's launch count rising and
@@ -180,9 +191,9 @@ each step's weights and K/V prefixes again where they outgrow the 50 MB L2
 (``kv_bytes``); the flash pair once for each
 (dtype, head_dim) built, told apart by ``variant``, ``dtype`` and
 ``head_dim``; ``cluster``, the blocks a sequence took, for the cluster
-kernels, else null; for the speculative kernel ``parent_ms``, the
-``--parent`` checkout's times or null), then, as the last line, ``{"ok":
-true, "device": {...}}``.
+kernels, else null; for the speculative and the two wide kernels
+``parent_ms``, the ``--parent`` checkout's times or null), then, as the
+last line, ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-planted-faults
 
@@ -1319,39 +1330,46 @@ def spec_vs_sequential(device) -> int:
     return cases
 
 
-class ParentSpecLibrary:
-    """Another checkout's one-block speculative kernel behind this
-    checkout's wrapper: its entry point takes the same arguments but the
-    three launch ints (cluster, heads and rows per pass) and the clock
-    before the stream; the wrapper's cluster-size query goes to this
-    checkout's kernel."""
-
-    def __init__(self, lib, own):
-        self.lib = lib
-        self.spec_decode_clusters = own.spec_decode_clusters
-
-    def spec_decode(self, *args):
-        return self.lib.spec_decode(*args[:-5], args[-1])
-
-
-def parent_spec_library(checkout):
-    """``csrc/spec_decode.cu`` of ``checkout`` (the parent commit, unpacked
-    with ``git archive``), built with its own headers into
-    ``build/parent_spec/`` and loaded."""
+def parent_libraries(checkout) -> dict:
+    """``csrc/spec_decode.cu``, ``csrc/decode_wide.cu`` and
+    ``csrc/decode_wide_segment.cu`` of ``checkout`` (the parent commit,
+    unpacked with ``git archive``), each built with its own headers into
+    ``build/parent_<name>/`` (one nvcc each, at once) and loaded with this
+    checkout's argument types: their entry points keep their arguments (a
+    larger zeroed scratch serves the parent's wide layout)."""
     import ctypes
+    from concurrent.futures import ThreadPoolExecutor
 
     from composer_tpu_torch.ops import _build
 
-    source = Path(checkout).resolve() / "composer_tpu_torch" / "csrc" / "spec_decode.cu"
-    target = _build.BUILD_DIR.parent / "parent_spec" / "libspec_decode.so"
-    target.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(target), str(source)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(target))
-    ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.spec_decode.restype = i32
-    lib.spec_decode.argtypes = [i32, i32] + [ptr] * 18 + [i32] * 11 + [u32] + [f32] * 5 + [ptr]
-    return lib
+    def build(name):
+        source = Path(checkout).resolve() / "composer_tpu_torch" / "csrc" / f"{name}.cu"
+        target = _build.BUILD_DIR.parent / f"parent_{name}" / f"lib{name}.so"
+        target.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(target), str(source)],
+                       check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(str(target))
+        for symbol, argtypes in _build.ENTRY_POINTS[name].items():
+            getattr(lib, symbol).restype = ctypes.c_int
+            getattr(lib, symbol).argtypes = argtypes
+        return lib
+
+    names = ("spec_decode", "decode_wide", "decode_wide_segment")
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
+def with_library(name: str, lib, fn):
+    """``fn()`` with ``load_library(name)`` answering ``lib`` (another
+    checkout's kernel, or a ``KernelSpans`` around one)."""
+    from composer_tpu_torch.ops import _build
+
+    load_library = _build.load_library
+    _build.load_library = lambda n="decode_generate": lib if n == name else load_library(n)
+    try:
+        return fn()
+    finally:
+        _build.load_library = load_library
 
 
 def spec_block_starts(prompt, tokens, block: int) -> list:
@@ -1437,7 +1455,7 @@ def spec_path(device, card: str, trained, parent=None) -> dict:
     phase 5's restored model, against the sequential kernel on the same
     request (the ids must be equal); then the kernel, its plain version and
     the sequential kernel timed at the main path's shape, and, given
-    ``parent`` (``parent_spec_library``), another checkout's kernel on the
+    ``parent`` (``parent_libraries``), another checkout's kernel on the
     same inputs in turns (parent, this, this, parent)."""
     from composer_tpu_torch.models import ModelType
     from composer_tpu_torch.ops import _build
@@ -1512,14 +1530,11 @@ def spec_path(device, card: str, trained, parent=None) -> dict:
                     tokens.cpu().numpy())
 
     def parent_ms():
-        load_library = _build.load_library
-        shim = ParentSpecLibrary(parent, load_library("spec_decode"))
-        _build.load_library = lambda name: shim
-        try:
-            ms = cuda_ms(lambda: dks.spec_decode(*args, **kwargs), 3)
-            parent_tokens = dks.spec_decode(*args, **kwargs)[0]
-        finally:
-            _build.load_library = load_library
+        lib = parent["spec_decode"]
+        ms = with_library("spec_decode", lib,
+                          lambda: cuda_ms(lambda: dks.spec_decode(*args, **kwargs), 3))
+        parent_tokens = with_library("spec_decode", lib,
+                                     lambda: dks.spec_decode(*args, **kwargs)[0])
         return ms, float((parent_tokens == tokens).float().mean())
 
     parent_times = [parent_ms()] if parent is not None else []
@@ -1557,10 +1572,10 @@ def spec_path(device, card: str, trained, parent=None) -> dict:
         f"{name} {ms:.2f} ms ({ms / clock_ms.sum():.3f})" for name, ms in zip(dks.PHASES, clock_ms))
         + f"; {clock_ms.sum():.2f} ms in all [{card}]", flush=True)
     if parent is not None:
-        print("spec kernel, the parent checkout's one-block kernel on the same inputs "
+        print("spec kernel, the parent checkout's kernel on the same inputs "
               f"(parent, this, this, parent): {parent_times[0][0]:.2f}, {spec_ms:.2f}, "
               f"{spec_ms2:.2f}, {parent_times[1][0]:.2f} ms; the parent's ids agree with "
-              f"this kernel's {parent_times[0][1]:.4f} (bf16: other summation order) "
+              f"this kernel's {parent_times[0][1]:.4f} "
               f"[{card}]", flush=True)
     else:
         print("spec kernel, parent: not measured (no --parent checkout given)", flush=True)
@@ -1957,9 +1972,6 @@ def serve_path(device, card: str) -> dict:
 FLAGSHIP = dict(vocab_size=390, embed_dim=1024, window_size=2048, num_layers=8, num_heads=16,
                 use_relative_attention=True)  # docs/validation.md:148-170
 WIDE_CHECK_CACHE = 256  # 150 steps: past the int8 K/V window at 128
-# decode_wide's bf16 flagship times by batch before its helpers moved to the
-# shared header, printed beside this run's for comparison.
-WIDE_BF16_EARLIER_MS = {8: 671.77, 1: 304.89}
 WIDE_SAMPLED = (np.array([1.0, 0.8, 0.0, 1.2, 1.0, 0.7, 1.0, 1.0], np.float32),
                 np.array([0, 20, 0, 5, 0, 40, 0, 3]),
                 np.array([0.9, 0.0, 0.0, 0.8, 0.0, 0.95, 0.0, 0.0], np.float32))
@@ -2267,12 +2279,31 @@ def flagship_path(device, card: str, flagship, yaml_config) -> dict:
             "prompt": prompt}
 
 
-def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: float) -> dict:
+def wide_clock_line(clock, steps: int) -> str:
+    """The kernel's clock (``PHASES``): block 0's own work by phase kind and
+    its barrier wait, each with its share, and the grid barriers a step."""
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+
+    values = clock.cpu().numpy()
+    ms = values[:-1] / 1e6
+    parts = ", ".join(f"{name} {t:.2f} ms ({t / ms.sum():.3f})"
+                      for name, t in zip(dw.PHASES[:-1], ms))
+    return (f"{parts}; {ms.sum():.2f} ms in all; {int(values[-1])} grid barriers, "
+            f"{values[-1] / steps:.2f} a step")
+
+
+def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: float,
+                 parent=None) -> dict:
     """Phase 8c: the kernel in bf16, int8 weights and int8 weights + int8 K/V
     (CUDA events, after a warm-up), the plain version (host clock after a
     synchronize) and one decode_generate launch on the same weights, at
-    B=8 and B=1 x (10 + 1014), sampled; then the default model's wide time
-    beside decode_generate's."""
+    B=8 and B=1 x (10 + 1014), sampled; the bf16 runs twice with identical
+    ids (a race between blocks shows as ids that differ only sometimes),
+    and the kernel's clock with its grid barriers a step. Given ``parent``
+    (``parent_libraries``), that checkout's kernel on the same bf16
+    inputs in turns (parent, this, this, parent), and its float32 greedy
+    ids against this kernel's. Then the default model's wide time beside
+    decode_generate's."""
     from composer_tpu_torch.ops import decode_kernel as dk
     from composer_tpu_torch.ops import decode_kernel_wide as dw
     from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
@@ -2297,23 +2328,53 @@ def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: floa
                                                    state=state), 2)
             kv_bytes = 1 if quantize_kv else 2
             ms, by = wide_bound(packed, config, batch, num_steps, kv_bytes)
-            earlier = (f" (the kernel before its helpers moved to csrc/decode_wide_common.cuh: "
-                       f"{WIDE_BF16_EARLIER_MS[batch]} ms on an NVIDIA H100 80GB HBM3 at 700 W)"
-                       if name == "bf16" else "")
             print(f"flagship wide kernel {name} B={batch} x {GENERATE_EVENTS}: "
                   f"{times[name]:.2f} ms ({events / times[name] * 1e3:.1f} events/s); bound "
-                  f"{ms:.2f} ms ({by}){earlier} [{card}]", flush=True)
+                  f"{ms:.2f} ms ({by}) [{card}]", flush=True)
             times[f"bound {name}"] = (ms, by)
-        # Where the time goes: the kernel's clock (block 0, from one grid
-        # barrier to the next) by phase, one more bf16 run.
+        bf16_args = (packs["bf16"][0], config, prompts, plens, sampled)
+        bf16_kwargs = dict(length=GENERATE_EVENTS, cache_len=1024)
+        first, second = (wide_run(*bf16_args, **bf16_kwargs)[0] for _ in range(2))
+        if not torch.equal(first, second):
+            raise AssertionError(f"wide bf16 B={batch}: two runs of the same launch give other "
+                                 f"ids (agreement {float((first == second).float().mean()):.4f})")
+        print(f"flagship wide kernel bf16 B={batch}: two runs give identical ids", flush=True)
+        # Where the time goes: the kernel's clock (block 0's own work by
+        # phase, its barrier wait, the barrier count), one more bf16 run.
         clock = torch.zeros(len(dw.PHASES), dtype=torch.int64, device=device)
-        wide_run(packs["bf16"][0], config, prompts, plens, sampled, length=GENERATE_EVENTS,
-                 cache_len=1024, phase_ns=clock)
-        clock_ms = clock.cpu().numpy() / 1e6
-        phases = ", ".join(f"{name} {ms:.2f} ms ({ms / clock_ms.sum():.3f})"
-                           for name, ms in zip(dw.PHASES, clock_ms))
-        print(f"flagship wide kernel bf16 B={batch} by phase (8 layers x 5 + 2 barriers a "
-              f"step): {phases}; {clock_ms.sum():.2f} ms in all [{card}]", flush=True)
+        wide_run(*bf16_args, **bf16_kwargs, phase_ns=clock)
+        clock_ms = clock.cpu().numpy()[:-1] / 1e6
+        print(f"flagship wide kernel bf16 B={batch} by phase: "
+              f"{wide_clock_line(clock, num_steps)} [{card}]", flush=True)
+        parent_ms = None
+        if parent is not None:
+            lib = parent["decode_wide"]
+
+            def parent_time():
+                return with_library("decode_wide", lib,
+                                    lambda: cuda_ms(lambda: wide_run(*bf16_args, **bf16_kwargs), 1))
+
+            parent_ms = [parent_time()]
+            ours = [cuda_ms(lambda: wide_run(*bf16_args, **bf16_kwargs), 1) for _ in range(2)]
+            parent_ms.append(parent_time())
+            print(f"flagship wide kernel bf16 B={batch} x {GENERATE_EVENTS}, the parent "
+                  f"checkout's kernel on the same inputs (parent, this, this, parent): "
+                  f"{parent_ms[0]:.2f}, {ours[0]:.2f}, {ours[1]:.2f}, {parent_ms[1]:.2f} ms; "
+                  f"{min(parent_ms) / max(ours):.3f}x [{card}]", flush=True)
+            if not max(ours) < min(parent_ms):
+                raise AssertionError(f"wide B={batch}: not faster than the parent's kernel")
+            if batch == 8:
+                f32 = dw.pack_weights_wide(flagship.state_dict(), config, torch.float32)
+                check = np.random.default_rng(8).integers(0, 390, (8, 9)).astype(np.int32)
+                f32_args = (f32, config, check, np.array([9, 3, 6, 1, 9, 4, 7, 2], np.int32),
+                            (0.0, 0, 0.0))
+                f32_kwargs = dict(length=142, cache_len=WIDE_CHECK_CACHE)
+                ours_ids = wide_run(*f32_args, **f32_kwargs)[0]
+                theirs = with_library("decode_wide", lib,
+                                      lambda: wide_run(*f32_args, **f32_kwargs)[0])
+                print(f"flagship wide f32 greedy 8 x (9 + 142): ids agreement with the parent's "
+                      f"kernel {float((ours_ids == theirs).float().mean()):.4f}", flush=True)
+                del f32
         start = time.perf_counter()
         wide_run(packs["bf16"][0], config, prompts, plens, sampled, length=GENERATE_EVENTS,
                  cache_len=1024, plain=True)
@@ -2334,7 +2395,8 @@ def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: floa
               f"decode_generate (auto's route before the wide kernel) {fused_ms:.2f} ms "
               f"({events / fused_ms * 1e3:.1f} events/s); wide is "
               f"{fused_ms / times['bf16']:.2f}x faster [{card}]", flush=True)
-        result[batch] = dict(times, plain_ms=plain_ms, fused_ms=fused_ms, clock_ms=clock_ms)
+        result[batch] = dict(times, plain_ms=plain_ms, fused_ms=fused_ms, clock_ms=clock_ms,
+                             parent_ms=parent_ms)
 
     model, _ = build_model(False, device)
     packed = dw.pack_weights_wide(model.state_dict(), model.config, torch.bfloat16)
@@ -2487,13 +2549,16 @@ def wide_segment_bound(packed, config, starts, step0: int, steps: int, live: int
     return bound(byte_count, flops)
 
 
-def wide_segment_timings(device, card: str, flagship) -> dict:
+def wide_segment_timings(device, card: str, flagship, parent=None) -> dict:
     """Phase 9b: the kernel on the flagship in bf16 at the service's shape (8
     rows x (10 + 1014) in 16 segments of 64, cache 2048, greedy), per
-    segment, against the plain version, the bound and one decode_wide
-    launch for the same generation (the cost of segmenting)."""
+    segment, run twice with identical ids, against the plain version, the
+    bound and one decode_wide launch for the same generation (the cost of
+    segmenting); given ``parent``, that checkout's kernel on the same
+    inputs in turns (parent, this, this, parent)."""
     from composer_tpu_torch.ops import _build
     from composer_tpu_torch.ops import decode_kernel_wide as dw
+    from composer_tpu_torch.ops import decode_kernel_wide_segmented as dws
 
     config = flagship.config
     packed = dw.pack_weights_wide(flagship.state_dict(), config, dtype=torch.bfloat16)
@@ -2504,17 +2569,41 @@ def wide_segment_timings(device, card: str, flagship) -> dict:
     boundaries = list(range(0, 16 * SEGMENT_STEPS + 1, SEGMENT_STEPS))
     args = (packed, config, prompts, plens, starts, boundaries, greedy)
     wide_segment_stream(*args, cache_len=SERVE_CACHE)  # warm-up
-    spans = KernelSpans(_build.load_library("decode_wide_segment"))
-    load_library = _build.load_library
-    _build.load_library = lambda name="decode_wide_segment": spans
-    try:
-        for _ in range(2):
-            ours, _ = wide_segment_stream(*args, cache_len=SERVE_CACHE)
-    finally:
-        _build.load_library = load_library
-    torch.cuda.synchronize()
-    per_segment = [begin.elapsed_time(end) for begin, end in spans.spans]
+
+    def segment_ms(lib):
+        """(ms per segment over one 16-segment stream, the stream)."""
+        spans = KernelSpans(lib)
+        stream, _ = with_library("decode_wide_segment", spans,
+                                 lambda: wide_segment_stream(*args, cache_len=SERVE_CACHE))
+        torch.cuda.synchronize()
+        return [begin.elapsed_time(end) for begin, end in spans.spans], stream
+
+    own = _build.load_library("decode_wide_segment")
+    runs = [segment_ms(own) for _ in range(2)]
+    if not torch.equal(runs[0][1], runs[1][1]):
+        raise AssertionError("wide segment bf16: two runs of the same segments give other ids")
+    ours = runs[1][1]
+    per_segment = runs[0][0] + runs[1][0]
     kernel_ms = float(np.mean(per_segment))
+    parent_ms = None
+    if parent is not None:
+        lib = parent["decode_wide_segment"]
+        parent_ms = [float(np.mean(segment_ms(lib)[0]))]
+        again = [float(np.mean(segment_ms(own)[0])) for _ in range(2)]
+        parent_ms.append(float(np.mean(segment_ms(lib)[0])))
+        print(f"wide segment kernel bf16 per segment, the parent checkout's kernel on the same "
+              f"inputs (parent, this, this, parent): {parent_ms[0]:.3f}, {again[0]:.3f}, "
+              f"{again[1]:.3f}, {parent_ms[1]:.3f} ms; {min(parent_ms) / max(again):.3f}x "
+              f"[{card}]", flush=True)
+        if not max(again) < min(parent_ms):
+            raise AssertionError("wide segment: not faster than the parent's kernel")
+    clock = torch.zeros(len(dw.PHASES), dtype=torch.int64, device=device)
+    kv, carry = dws.init_wide_segment_state(packed, config, 8, SERVE_CACHE)
+    dws.decode_segment_wide(packed, kv, carry, prompts, plens, starts, 0, 3, *greedy,
+                            config=config, steps=SEGMENT_STEPS, cache_len=SERVE_CACHE,
+                            live=256, phase_ns=clock)
+    print(f"wide segment kernel bf16, first segment by phase: "
+          f"{wide_clock_line(clock, SEGMENT_STEPS)} [{card}]", flush=True)
     start = time.perf_counter()
     plain, _ = wide_segment_stream(*args, cache_len=SERVE_CACHE, plain=True)
     plain_ms = (time.perf_counter() - start) * 1e3 / 16
@@ -2544,7 +2633,7 @@ def wide_segment_timings(device, card: str, flagship) -> dict:
           f"{16 * kernel_ms / whole_ms:.4f}x); ids agreement with decode_wide {agree:.4f} "
           f"[{card}]", flush=True)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "whole_ms": whole_ms, "first_ms": per_segment[half:half + 2]}
+            "whole_ms": whole_ms, "first_ms": per_segment[half:half + 2], "parent_ms": parent_ms}
 
 
 def wide_serve_path(device, card: str, flagship, first_ms) -> dict:
@@ -2688,11 +2777,11 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     if sys.argv[1:] == ["--flash-planted-faults"]:
         return flash_planted_faults(device, card)
-    parent_spec = None
+    parent = None
     if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
         from concurrent.futures import ThreadPoolExecutor
 
-        parent_spec = ThreadPoolExecutor(1).submit(parent_spec_library, sys.argv[2])
+        parent = ThreadPoolExecutor(1).submit(parent_libraries, sys.argv[2])
     elif sys.argv[1:]:
         print(__doc__, file=sys.stderr)
         return 2
@@ -2720,17 +2809,17 @@ def main() -> int:
     }
     spec_error = spec_vs_plain(device)
     spec_vs_sequential(device)
-    spec = spec_path(device, card, training["restored"],
-                     parent_spec.result() if parent_spec is not None else None)
+    parent = parent.result() if parent is not None else None
+    spec = spec_path(device, card, training["restored"], parent)
     segment_error = segment_vs_plain(device)
     segment = segment_timings(device, card)
     serve = serve_path(device, card)
     flagship = build_flagship(device)
     wide_error = wide_vs_plain(device, flagship)
     wide_path = flagship_path(device, card, flagship, get_default())
-    wide = wide_timings(device, card, flagship, wide_path, times["batched"][0])
+    wide = wide_timings(device, card, flagship, wide_path, times["batched"][0], parent)
     wide_segment_error = wide_segment_vs_plain(device, flagship)
-    wide_segment = wide_segment_timings(device, card, flagship)
+    wide_segment = wide_segment_timings(device, card, flagship, parent)
     wide_serve = wide_serve_path(device, card, flagship, wide_segment["first_ms"])
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
@@ -2790,7 +2879,7 @@ def main() -> int:
         "replaces": "composer_tpu/ops/decode_kernel_wide.py:153", "launches": wide_path["launches"],
         "max_abs_err": wide_error, "ms": wide[8]["bf16"], "plain_ms": wide[8]["plain_ms"],
         "bound_ms": wide_bound_ms, "bound_by": wide_bound_by, "library_ms": None,
-        "cluster": None})
+        "cluster": None, "parent_ms": wide[8]["parent_ms"]})
     kernels.append({
         "name": "decode_segment_wide", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_wide_segment.cu",
@@ -2798,7 +2887,7 @@ def main() -> int:
         "launches": wide_serve["launches"], "max_abs_err": wide_segment_error,
         "ms": wide_segment["ms"], "plain_ms": wide_segment["plain_ms"],
         "bound_ms": wide_segment["bound_ms"], "bound_by": wide_segment["bound_by"],
-        "library_ms": None, "cluster": None})
+        "library_ms": None, "cluster": None, "parent_ms": wide_segment["parent_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

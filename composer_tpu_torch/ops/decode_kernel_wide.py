@@ -13,8 +13,11 @@ kernel reads each weight byte once per step for all B rows, spread over
 every SM: one cooperative persistent launch for the whole generation, with
 grid-wide barriers between the phases of a layer (ln_1 + qkv, attention,
 proj, ln_2 + fc, fp, then the logits and the sampling). In each matmul
-phase every block owns a slice of output columns and applies each weight
-it loads to all B rows.
+phase every block owns a fixed slice of output columns (``wide_tiles``),
+streams it into shared memory ahead of the phase's barrier and applies each
+weight to all B rows on tensor cores; attention runs (row, head, key split)
+items on warp groups (``wide_attention_items``). The step body is
+``csrc/decode_wide_common.cuh``'s, shared with ``decode_segment_wide``.
 
 What the port keeps of the TPU kernel is its semantics, not its layout:
 
@@ -60,12 +63,33 @@ from composer_tpu_torch.ops.decode_kernel_batched import (
 # Rows of the float window of int8 K/V: a row is read quantized once the
 # window that holds it is complete.
 TAIL = 128
-# The kernel's limits: rows per launch (register accumulators) and
-# attention splits per (row, head) (its partials buffer).
+# The kernel's limits: rows per launch (the tensor-core products' 8 rows)
+# and attention splits per (row, head) (its partials buffer).
 MAX_BATCH = 8
 MAX_SPLITS = 16
-# The phases of a step, as the kernel's optional clock counts them.
-PHASES = ("ln_1 + qkv", "attention", "proj", "ln_2 + fc", "fp", "logits", "sampling")
+# The slots of the kernel's optional clock, block 0's (ns unless said): its
+# own work in each phase kind not counted in the slots after; the matmul
+# phases' wait for their input rows with the LayerNorm; their wait for
+# weight tiles; the attention's key pass and its merge (block 0's first
+# warp group); the wait at grid barriers; and the number of grid barriers
+# (a count, not ns).
+PHASES = ("ln_1 + qkv", "attention", "proj", "ln_2 + fc", "fp", "logits", "sampling",
+          "input rows + LayerNorm", "weight tile wait", "attention keys", "attention merge",
+          "grid barrier wait", "grid barriers (count)")
+# The streamed weights' tiles (csrc/decode_wide_common.cuh): two stages of
+# STAGE_BYTES of shared memory, tiles of at most MAX_TILE_UNITS units of 8
+# output columns. An attention item runs on a block, whose GROUPS_PER_BLOCK
+# warp groups of GROUP_THREADS take quarters of its keys; at most one key
+# split for every MIN_SPLIT_KEYS keys.
+STAGE_BYTES = 65536
+MAX_TILE_UNITS = KERNEL_THREADS // 32
+GROUP_THREADS = 128
+GROUPS_PER_BLOCK = KERNEL_THREADS // GROUP_THREADS
+MIN_SPLIT_KEYS = 64
+# Shared memory ahead of the kernel's union: the stages' mbarriers, the row
+# list and the tile geometry (512 bytes), 64 floats of reductions and 1024 of
+# matmul sums.
+HEADER_BYTES = 512 + 4 * (64 + 1024)
 # Weight kinds of the C entry point.
 _WEIGHT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -149,28 +173,116 @@ def init_kv_state(config, batch: int, cache_len: int, dtype=torch.bfloat16,
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def wide_smem_bytes(config, batch: int, cache_len: int) -> int:
-    """Dynamic shared memory of one block; mirrors ``smem_floats`` in
-    csrc/decode_wide.cu: reductions, the rows' ``B x E`` inputs and a union
-    of the matmul operand ``B x 4E``, one attention split (q, ``cache_len``
-    scores, up to 8 partial sums per thread) and the sampler's 4 vocab
-    rows."""
+def _weight_bytes(dtype) -> tuple:
+    """(bytes of a streamed weight, bytes of an activation) for a packing
+    dtype: bf16 and int8 weights run bf16 activations."""
+    if dtype == torch.float32:
+        return 4, 4
+    return (1 if dtype == torch.int8 else 2), 2
+
+
+def wide_smem_bytes(config, batch: int, cache_len: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one block for weights of ``dtype``; mirrors
+    ``smem_bytes`` in csrc/decode_wide_common.cuh: the header, a union of the
+    phases' operands (LayerNorm's ``B x E`` float rows and their ``B x E``
+    operand in the activation dtype, the fp operand ``B x 4E``, the
+    attention merge: the block's thread groups' sums, a partial sum a
+    thread and a (row, head)'s ``MAX_SPLITS`` partials, and the sampling
+    teams' sorts: per row its padded vocabulary, rounded up to a power of
+    two, in floats and in doubles, and a double a warp), rounded
+    up to 128 bytes, and, for bf16 and int8 weights, two weight stages.
+    ``cache_len`` no longer matters: attention keeps no per-key buffer."""
+    del cache_len
     E, D = config.embed_dim, config.head_dim
-    vpad = dk.vocab_pad(config)
-    union = max(batch * 4 * E, D + cache_len + 8 * KERNEL_THREADS, 4 * vpad)
-    partial_sums = (KERNEL_THREADS // 32) * 4 * MAX_BATCH  # a warp's 4 columns x B rows
-    return 4 * (64 + partial_sums + batch * E + union)
+    wbytes, abytes = _weight_bytes(dtype)
+    lanes = D // (16 // abytes)
+    attention = (GROUPS_PER_BLOCK * (GROUP_THREADS // lanes) * (D + 3) + KERNEL_THREADS
+                 + MAX_SPLITS * (D + 2) + 4)
+    sort = 1 << (dk.vocab_pad(config) - 1).bit_length()  # sort_length
+    union = max(batch * E * (4 + abytes), 4 * batch * E * abytes, 4 * attention,
+                batch * (12 * sort + 8 * (KERNEL_THREADS // 32)))
+    union = -(-union // 128) * 128
+    return HEADER_BYTES + union + (2 * STAGE_BYTES if wbytes != 4 else 0)
 
 
-def wide_kernel_fits(config, batch: int, cache_len: int) -> bool:
-    """The kernel's limits: at most ``MAX_BATCH`` rows, shared memory within
-    227 KB, embed a multiple of 16 (16-byte int8 weight loads), head_dim a
-    multiple of 8 (16-byte bf16 loads of a head), at most 128 (a key's
-    lanes within one warp) and dividing the block's 512 threads."""
+def wide_kernel_fits(config, batch: int, cache_len: int, dtype=torch.bfloat16) -> bool:
+    """The kernel's limits for weights of ``dtype``: at most ``MAX_BATCH``
+    rows, shared memory within 227 KB, embed a multiple of 16 (16-byte
+    loads of the rows and the tiles), head_dim a multiple of 8 (16-byte bf16
+    loads of a head), at most 128 (a key's lanes within one warp) and
+    dividing the block's 512 threads."""
     D = config.head_dim
-    return (1 <= batch <= MAX_BATCH and wide_smem_bytes(config, batch, cache_len)
+    return (1 <= batch <= MAX_BATCH and wide_smem_bytes(config, batch, cache_len, dtype)
             <= MAX_SHARED_BYTES and config.embed_dim % 16 == 0 and D % 8 == 0
             and D <= 128 and KERNEL_THREADS % D == 0)
+
+
+def tile_geom(N: int, K: int, wbytes: int, grid: int) -> dict:
+    """One matmul phase's tiles; mirrors ``tile_geom`` in
+    csrc/decode_wide_common.cuh. ``units`` of 8 output columns; a tile holds
+    ``upt`` units of the whole K (``kts`` = 1) or, where one unit of K
+    outgrows a stage, one unit of ``kc`` of K (``kts`` chunks); column group
+    g (``upt`` units) belongs to block ``g % grid``."""
+    units = N // 8
+    unit_bytes = 8 * K * wbytes
+    if unit_bytes <= STAGE_BYTES:
+        upt = min(-(-units // grid), STAGE_BYTES // unit_bytes, MAX_TILE_UNITS)
+        kc, kts = K, 1
+    else:
+        upt, kc = 1, STAGE_BYTES // (8 * wbytes) // 32 * 32
+        kts = -(-K // kc)
+    return dict(units=units, upt=upt, kc=kc, kts=kts, groups=-(-units // upt), K=K)
+
+
+def wide_tiles(config, grid: int, dtype=torch.bfloat16) -> dict:
+    """The static slices of the streamed matmul phases: for each phase
+    (``qkv``, ``proj``, ``fc``, ``fp``, ``logits``), the tiles in the order
+    the kernel streams them, as ``(block, first column, columns, first k,
+    k length, bytes)``. Every output column and k of a phase lies in exactly
+    one tile, whatever ``grid`` is (the CPU tests check it)."""
+    E, V = config.embed_dim, dk.vocab_pad(config)
+    wbytes, abytes = _weight_bytes(dtype)
+    shapes = {"qkv": (3 * E, E, wbytes), "proj": (E, E, wbytes), "fc": (4 * E, E, wbytes),
+              "fp": (E, 4 * E, wbytes), "logits": (V, E, abytes)}
+    tiles = {}
+    for name, (N, K, wb) in shapes.items():
+        g = tile_geom(N, K, wb, grid)
+        tiles[name] = []
+        for block in range(grid):
+            for group in range(block, g["groups"], grid):
+                units = min(g["upt"], g["units"] - group * g["upt"])
+                for chunk in range(g["kts"]):
+                    k0 = chunk * g["kc"]
+                    klen = min(g["kc"], K - k0)
+                    tiles[name].append((block, group * g["upt"] * 8, units * 8, k0, klen,
+                                        units * 8 * klen * wb))
+    return tiles
+
+
+def wide_attention_items(key_positions, heads: int, grid: int) -> list:
+    """A step's attention items; mirrors ``plan_splits`` and the item loop of
+    ``attention_phase`` in csrc/decode_wide_common.cuh. Row b (keys
+    ``[0, key_positions[b]]``) gets ``S`` key splits, at most one for every
+    ``MIN_SPLIT_KEYS`` keys (so none is empty) and at most ``MAX_SPLITS``,
+    enough to cover the grid's blocks; item i runs on block ``i % grid``,
+    whose warp groups take quarters of its keys. Returns ``(row, head,
+    split, first key, end key, block, [(first key, end key) of each warp
+    group])`` for every item."""
+    B = len(key_positions)
+    cap = min(max(grid // (B * heads), 1), MAX_SPLITS)
+    items = []
+    for b, key_pos in enumerate(key_positions):
+        n = key_pos + 1
+        S = min((key_pos + MIN_SPLIT_KEYS) // MIN_SPLIT_KEYS, cap)
+        per = -(-n // S)
+        for hh in range(heads):
+            for s in range(S):
+                j0, j1 = s * per, min(n, s * per + per)
+                quarter = -(-(j1 - j0) // GROUPS_PER_BLOCK)
+                starts = [min(j1, j0 + g * quarter) for g in range(GROUPS_PER_BLOCK)]
+                quarters = [(k0, min(j1, k0 + quarter)) for k0 in starts]
+                items.append((b, hh, s, j0, j1, len(items) % grid, quarters))
+    return items
 
 
 def _split_state(kv_state):
@@ -288,12 +400,14 @@ def decode_wide_reference(packed, kv_state, prompts, plens, seed, temps, topk, t
 
 def _scratch_floats(batch: int, config) -> int:
     """The kernel's float32 scratch; mirrors ``scratch_floats`` in
-    csrc/decode_wide.cu: x1, q, x2 and h (B x E each), the MLP hidden
-    (B x 4E), the logits (B x Vpad), the attention partials
-    (B x H x MAX_SPLITS x (D + 2)) and the B input tokens."""
+    csrc/decode_wide_common.cuh: x1, q, x2 and h (B x E each), the attention
+    output (B x E, held in the activation dtype), the MLP hidden (B x 4E,
+    likewise), the logits (B x Vpad), the attention partials
+    (B x H x MAX_SPLITS x (D + 2)), then ints: the B x H split counters and
+    the grid barrier's counter. Allocated zeroed."""
     E, H, D = config.embed_dim, config.num_heads, config.head_dim
-    return (8 * batch * E + batch * dk.vocab_pad(config)
-            + batch * H * MAX_SPLITS * (D + 2) + batch)
+    return (9 * batch * E + batch * dk.vocab_pad(config)
+            + batch * H * MAX_SPLITS * (D + 2) + batch * H + 1)
 
 
 def _check_packed(packed, config):
@@ -366,9 +480,9 @@ def decode_wide(packed, kv_state, prompts, plens, seed, temps, topk, topp, *, co
     ``(B, Vpad)`` float32) receives the last step's logits. ``grid`` is the
     number of blocks (0: one per SM); a grid that cannot be resident at once
     is refused, since its barriers would never open. ``phase_ns`` (optional
-    ``(len(PHASES),)`` int64 on the card) accumulates the nanoseconds block
-    0 spends from one grid barrier to the next, by phase (``PHASES``): the
-    slowest block's work plus the barrier.
+    ``(len(PHASES),)`` int64 on the card) accumulates block 0's clock
+    (``PHASES``): its own work in each phase kind and its wait at the grid
+    barriers in nanoseconds, and the number of grid barriers.
 
     On CPU tensors this is the plain version. On CUDA tensors it launches the
     kernel (counted in ``decode_wide.launches``) or raises.
@@ -386,19 +500,20 @@ def decode_wide(packed, kv_state, prompts, plens, seed, temps, topk, topp, *, co
                                  or phase_ns.shape != (len(PHASES),)):
         raise ValueError(f"phase_ns must be a ({len(PHASES)},) int64 tensor on {device}")
     B = prompts.shape[0]
-    if not wide_kernel_fits(config, B, cache_len):
+    wdtype = packed["big_w"].dtype
+    if not wide_kernel_fits(config, B, cache_len, wdtype):
         raise ValueError(
             f"the kernel takes 1..{MAX_BATCH} rows, embed % 16 == 0, head_dim % 8 == 0 "
             f"up to 128 dividing {KERNEL_THREADS}, and at most {MAX_SHARED_BYTES} bytes of shared "
-            f"memory; batch {B} at cache_len {cache_len} needs "
-            f"{wide_smem_bytes(config, B, cache_len)}")
+            f"memory; batch {B} needs {wide_smem_bytes(config, B, cache_len, wdtype)}")
     import ctypes
 
     from composer_tpu_torch.ops._build import load_library
 
     kv, kq, ks, tail = _split_state(kv_state)
     tokens = torch.zeros((B, out_len), dtype=torch.int32, device=device)
-    scratch = torch.empty(_scratch_floats(B, config), dtype=torch.float32, device=device)
+    # Zeroed: the split counters and the grid barrier's counter start at 0.
+    scratch = torch.zeros(_scratch_floats(B, config), dtype=torch.float32, device=device)
     inputs = {name: packed.get(name) for name in (
         "big_w", "fp_w", "wscale", "fpscale", "wte", "logits_w", "wpe", "ln1", "qkv_b",
         "proj_b", "fc_b", "fp_b")}

@@ -6,8 +6,9 @@ kernel ``decode_wide_segment`` (``csrc/decode_wide_segment.cu``, CUDA C++
 for ``sm_90a``) replaces the TPU kernel ``_wide_segment_kernel``.
 
 It joins the two kernels it stands between: the weights stream from HBM as
-in ``decode_wide`` (one cooperative launch, a block per SM, each weight byte
-read once per step for all live rows), and each slot keeps its own clock as
+in ``decode_wide``, whose step body it runs (one cooperative launch, a block
+per SM, each weight byte read once per step for all live rows), and each
+slot keeps its own clock as
 in ``decode_segment``: slot s, admitted at global step ``starts[s]``, sits
 at position ``i - starts[s]``, teacher-forced inside its prompt, fed back
 its own sample after; a negative position is parked (``PARKED``), emits -1
@@ -63,9 +64,11 @@ __all__ = [
     "wide_segment_smem_bytes",
 ]
 
-# The per-step row list the kernel keeps at the front of its shared memory
-# (kStepInfo ints in csrc/decode_wide_segment.cu).
-STEP_INFO_BYTES = 256
+# The per-step row list, the weight stages' mbarriers and their tile
+# geometry, at the front of the kernel's shared memory (kInfoBytes in
+# csrc/decode_wide_common.cuh; part of HEADER_BYTES, which decode_wide
+# shares).
+STEP_INFO_BYTES = 512
 
 
 def init_wide_segment_state(packed, config, batch: int, cache_len: int):
@@ -79,21 +82,22 @@ def init_wide_segment_state(packed, config, batch: int, cache_len: int):
     return kv, torch.zeros(batch, dtype=torch.int32, device=device)
 
 
-def wide_segment_smem_bytes(config, batch: int, live: int) -> int:
-    """Dynamic shared memory of one block: the row list and ``decode_wide``'s
-    layout with attention splits of at most ``live`` keys."""
-    return STEP_INFO_BYTES + wide_smem_bytes(config, batch, live)
+def wide_segment_smem_bytes(config, batch: int, live: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one block: ``decode_wide``'s layout (the two
+    kernels run one step body), whose header holds the row list. ``live``
+    no longer matters: attention keeps no per-key buffer."""
+    return wide_smem_bytes(config, batch, live, dtype)
 
 
-def wide_segment_kernel_fits(config, batch: int, live: int) -> bool:
+def wide_segment_kernel_fits(config, batch: int, live: int, dtype=torch.bfloat16) -> bool:
     """The kernel's limits for ``batch`` slots reading ``live`` cache rows:
-    at most ``MAX_BATCH`` slots (register accumulators), shared memory
-    within 227 KB, and ``decode_wide``'s widths (embed % 16 == 0, head_dim a
-    multiple of 8 up to 128 dividing 512). The counterpart of the JAX
-    package's ``wide_segment_vmem_bytes`` budget."""
+    at most ``MAX_BATCH`` slots (the tensor-core products' 8 rows), shared
+    memory within 227 KB, and ``decode_wide``'s widths (embed % 16 == 0,
+    head_dim a multiple of 8 up to 128 dividing 512). The counterpart of the
+    JAX package's ``wide_segment_vmem_bytes`` budget."""
     D = config.head_dim
     return (1 <= batch <= MAX_BATCH and live >= 1
-            and wide_segment_smem_bytes(config, batch, live) <= MAX_SHARED_BYTES
+            and wide_segment_smem_bytes(config, batch, live, dtype) <= MAX_SHARED_BYTES
             and config.embed_dim % 16 == 0 and D % 8 == 0 and D <= 128
             and KERNEL_THREADS % D == 0)
 
@@ -218,7 +222,7 @@ def decode_segment_wide(packed, kv_state, carry, prompts, plens, starts, step0: 
     attends to ``[0, live)`` and writes nothing. ``grid`` is the number of
     blocks (0: one per SM); a grid that cannot be resident at once is
     refused. ``phase_ns`` (optional ``(len(PHASES),)`` int64 on the card)
-    accumulates block 0's nanoseconds per phase kind, as in ``decode_wide``.
+    accumulates block 0's clock, as in ``decode_wide``.
 
     Returns ``(tokens, kv_state, carry)``: tokens ``(B, steps)`` int32, row
     s's raw sample after each step, -1 while parked; the state is updated in
@@ -252,17 +256,19 @@ def decode_segment_wide(packed, kv_state, carry, prompts, plens, starts, step0: 
     if phase_ns is not None and (phase_ns.device != device or phase_ns.dtype != torch.int64
                                  or phase_ns.shape != (len(PHASES),)):
         raise ValueError(f"phase_ns must be a ({len(PHASES)},) int64 tensor on {device}")
-    if not wide_segment_kernel_fits(config, B, live):
+    wdtype = packed["big_w"].dtype
+    if not wide_segment_kernel_fits(config, B, live, wdtype):
         raise ValueError(
             f"the kernel takes 1..{MAX_BATCH} slots, embed % 16 == 0, head_dim % 8 == 0 up to "
             f"128 dividing {KERNEL_THREADS}, and at most {MAX_SHARED_BYTES} bytes of shared "
-            f"memory; {B} slots at live {live} need {wide_segment_smem_bytes(config, B, live)}")
+            f"memory; {B} slots need {wide_segment_smem_bytes(config, B, live, wdtype)}")
     import ctypes
 
     from composer_tpu_torch.ops._build import load_library
 
     tokens = torch.empty((B, steps), dtype=torch.int32, device=device)
-    scratch = torch.empty(_scratch_floats(B, config), dtype=torch.float32, device=device)
+    # Zeroed: the split counters and the grid barrier's counter start at 0.
+    scratch = torch.zeros(_scratch_floats(B, config), dtype=torch.float32, device=device)
     inputs = {name: packed.get(name) for name in (
         "big_w", "fp_w", "wscale", "fpscale", "wte", "logits_w", "wpe", "ln1", "qkv_b",
         "proj_b", "fc_b", "fp_b")}

@@ -52,7 +52,8 @@ def _model(use_relative, device):
     return model.to(device).eval()
 
 
-def _both(packed, config, prompts, plens, sampling, *, length, cache_len, quantize_kv=False):
+def _both(packed, config, prompts, plens, sampling, *, length, cache_len, quantize_kv=False,
+          grid=0):
     """(kernel ids, plain ids, max |logits difference| at the last step)."""
     device = packed["wte"].device
     B, width = prompts.shape
@@ -65,8 +66,9 @@ def _both(packed, config, prompts, plens, sampling, *, length, cache_len, quanti
     for run in (dw.decode_wide, dw.decode_wide_reference):
         kv = dw.init_kv_state(config, B, cache_len, packed["wte"].dtype, quantize_kv, device)
         logits = torch.zeros((B, packed["wte"].shape[0]), device=device)
+        extra = dict(grid=grid) if run is dw.decode_wide else {}
         tokens = run(packed, kv, prompts, plens, 3, *rows, config=config, num_steps=num_steps,
-                     out_len=num_steps, cache_len=cache_len, logits_out=logits)
+                     out_len=num_steps, cache_len=cache_len, logits_out=logits, **extra)
         torch.cuda.synchronize()
         results.append((tokens.cpu(), logits))
     (ours, lo), (plain, lp) = results
@@ -98,6 +100,31 @@ def test_kernel_matches_plain(cuda_device, use_relative, weights, sampled):
         # Raises where a token falls outside the bf16 rule.
         wide_teacher_forced_gap(packed, model.config, prompts, plens, sampling, ours,
                                 cache_len=256, quantize_kv=weights.endswith("int8kv"))
+
+
+@pytest.mark.parametrize("weights", ["float32", "int8+int8kv"])
+def test_smaller_grid_matches_plain(cuda_device, weights):
+    """64 blocks, fewer than the card's SMs: every weight tile and attention
+    item still lands on some block (several on one), so float32 ids equal
+    the plain version's and int8 weights pass the bf16 rule."""
+    model = _model(True, cuda_device)
+    dtype = torch.int8 if weights.startswith("int8") else torch.float32
+    packed = dw.pack_weights_wide(model.state_dict(), model.config, dtype=dtype)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, 390, (4, 9)).astype(np.int32)
+    plens = np.array([9, 3, 6, 1], np.int32)
+    sampling = tuple(SAMPLED.values())
+    quantize_kv = weights.endswith("int8kv")
+    ours, plain, err = _both(packed, model.config, prompts, plens, sampling, length=142,
+                             cache_len=256, quantize_kv=quantize_kv, grid=64)
+    if dtype == torch.float32:
+        assert torch.equal(ours, plain)
+        assert err <= LOGIT_TOL
+    else:
+        from chip_smoke import wide_teacher_forced_gap
+
+        wide_teacher_forced_gap(packed, model.config, prompts, plens, sampling, ours,
+                                cache_len=256, quantize_kv=quantize_kv)
 
 
 def test_reused_state_equals_fresh(cuda_device):
@@ -150,13 +177,22 @@ def test_grid_that_cannot_be_resident_raises(cuda_device):
                        out_len=8, cache_len=128, grid=64 * sms)
     torch.cuda.synchronize()
     # A grid smaller than the card runs, and agrees with the full grid; the
-    # clock counts time in every phase.
+    # clock counts time in every slot (float32 weights have no weight
+    # stream, so no tile wait; bf16 ones fill every slot).
     clock = torch.zeros(len(dw.PHASES), dtype=torch.int64, device=cuda_device)
     ids = [dw.decode_wide(packed, kv, prompts, plens, 0, *rows, config=model.config,
                           num_steps=8, out_len=8, cache_len=128, grid=grid,
                           phase_ns=clock if grid else None).cpu()
            for grid in (3, 0)]
     assert torch.equal(ids[0], ids[1])
+    streamless = [i for i, name in enumerate(dw.PHASES) if name != "weight tile wait"]
+    assert (clock.cpu()[streamless] > 0).all()
+    bf16 = dw.pack_weights_wide(model.state_dict(), model.config, dtype=torch.bfloat16)
+    clock.zero_()
+    dw.decode_wide(bf16, dw.init_kv_state(model.config, 1, 128, torch.bfloat16,
+                                          device=cuda_device),
+                   prompts, plens, 0, *rows, config=model.config, num_steps=8, out_len=8,
+                   cache_len=128, grid=3, phase_ns=clock)
     assert (clock.cpu() > 0).all()
 
 

@@ -26,6 +26,7 @@ from composer_tpu_torch.models.convert import params_from_flax
 from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
 from composer_tpu_torch.ops import decode_kernel as dk
 from composer_tpu_torch.ops import decode_kernel_wide as dw
+from composer_tpu_torch.ops import decode_kernel_wide_segmented as dws
 from composer_tpu_torch.ops.decode_kernel_batched import megakernel_generate_batched
 from composer_tpu_torch.train import generate as gen
 
@@ -254,13 +255,15 @@ def test_engine_follows_the_int8_flags(monkeypatch):
 
 def test_wide_kernel_limits():
     """The sub-batch cap: 8 for the flagship at cache 1152 (shared memory
-    160 KB), fewer rows where embed 4096's B x 4E operand outgrows shared
-    memory, and 0 for widths the kernel does not take (embed not a multiple
-    of 16, head_dim above 128)."""
+    196.5 KB: the header, the fp operand 8 x 4096 in bf16 and two 64 KB
+    weight stages), fewer rows where embed 4096's B x 4E operand outgrows
+    shared memory, and 0 for widths the kernel does not take (embed not a
+    multiple of 16, head_dim above 128)."""
     flagship = TransformerConfig(vocab_size=390, embed_dim=1024, window_size=2048,
                                  num_layers=8, num_heads=16, use_relative_attention=True)
     assert gen._wide_batch_cap(flagship, 1152) == 8
-    assert dw.wide_smem_bytes(flagship, 8, 1152) == 4 * (64 + 512 + 8 * 1024 + 8 * 4096)
+    assert dw.wide_smem_bytes(flagship, 8, 1152) == (
+        dw.HEADER_BYTES + 4 * 8 * 1024 * 2 + 2 * dw.STAGE_BYTES)
     giant = TransformerConfig(vocab_size=390, embed_dim=4096, window_size=2048,
                               num_layers=8, num_heads=32)
     assert gen._wide_batch_cap(giant, 1152) == 2
@@ -271,3 +274,132 @@ def test_wide_kernel_limits():
     with pytest.raises(ValueError, match="kv_state"):
         _port_ids(_setup(), np.zeros((2, 4), np.int32), 4, 128,
                   kv=dw.init_kv_state(flagship, 2, 128, torch.float32))
+
+
+CONFIGS = {
+    "default": dict(vocab_size=390, embed_dim=256, window_size=1024, num_layers=8,
+                    num_heads=16),  # composer_tpu/default_config.yml
+    "flagship": dict(vocab_size=390, embed_dim=1024, window_size=2048, num_layers=8,
+                     num_heads=16, use_relative_attention=True),  # docs/validation.md
+}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def _parent_kernel_fits(config, batch, cache_len):
+    """The admission rule of the kernel before the weight stream: shared
+    memory of 64 + 512 floats, the rows' B x E and a union of the B x 4E
+    operand, one attention split (q, cache_len scores, 8 floats a thread)
+    and the sampler's 4 vocab rows, within 227 KB."""
+    E, D = config.embed_dim, config.head_dim
+    union = max(batch * 4 * E, D + cache_len + 8 * 512, 4 * dk.vocab_pad(config))
+    smem = 4 * (64 + 512 + batch * E + union)
+    return (1 <= batch <= 8 and smem <= 232448 and E % 16 == 0 and D % 8 == 0 and D <= 128
+            and 512 % D == 0)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_fit_admits_every_shape_the_parent_admitted(name):
+    """Every (batch 1-8, cache 128-2048) the parent's kernel admitted is
+    admitted, for every weight dtype, by both kernels (routing follows
+    ``wide_kernel_fits``, the service's capacity ``wide_segment_kernel_fits``)."""
+    config = TransformerConfig(**CONFIGS[name])
+    admitted = 0
+    for batch in range(1, 9):
+        for cache_len in range(128, 2049, 128):
+            if not _parent_kernel_fits(config, batch, cache_len):
+                continue
+            admitted += 1
+            for dtype in DTYPES.values():
+                assert dw.wide_kernel_fits(config, batch, cache_len, dtype), (batch, cache_len)
+                assert dws.wide_segment_kernel_fits(config, batch, cache_len, dtype)
+    assert admitted == 8 * 16
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_smem_and_scratch_follow_the_layout(dtype):
+    """``wide_smem_bytes`` and ``_scratch_floats`` spell out the kernel's
+    layout (csrc/decode_wide_common.cuh ``smem_bytes``, ``scratch_floats``):
+    at the flagship's B=8 the fp operand (B x 4E in the activation dtype)
+    is the largest member of the union; at B=1 in bf16 the attention merge
+    is (4 warp groups of 16 thread groups of D + 3 floats, for 16-byte loads
+    of 8 bf16 a lane, a partial sum a thread, 16 splits' partials of D + 2,
+    and 4 for the flag and the groups' max and sum);
+    bf16 and int8 add two 64 KB stages."""
+    config = TransformerConfig(**CONFIGS["flagship"])
+    torch_dtype = DTYPES[dtype]
+    abytes = 4 if dtype == "float32" else 2
+    stages = 0 if dtype == "float32" else 2 * 65536
+    assert dw.HEADER_BYTES == 512 + 4 * (64 + 1024)
+    assert dw.wide_smem_bytes(config, 8, 2048, torch_dtype) == (
+        dw.HEADER_BYTES + 4 * 8 * 1024 * abytes + stages)
+    lanes = 64 // (16 // abytes)
+    attention = 4 * (4 * (128 // lanes) * (64 + 3) + 512 + dw.MAX_SPLITS * (64 + 2) + 4)
+    union = max(attention, 4 * 1024 * abytes)  # bf16: the attention merge; f32: fp
+    assert dw.wide_smem_bytes(config, 1, 2048, torch_dtype) == (
+        dw.HEADER_BYTES + -(-union // 128) * 128 + stages)
+    for batch in range(1, 9):
+        assert dws.wide_segment_smem_bytes(config, batch, 2048, torch_dtype) == \
+            dw.wide_smem_bytes(config, batch, 2048, torch_dtype)
+    B, E, H, D = 8, 1024, 16, 64
+    assert dw._scratch_floats(B, config) == (
+        9 * B * E + B * 512 + B * H * dw.MAX_SPLITS * (D + 2) + B * H + 1)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("grid", [1, 64, 132, 264])
+def test_every_weight_column_is_streamed_once(grid, name, dtype):
+    """The static slices of every streamed matmul phase (``wide_tiles``, the
+    mirror of ``tile_geom``): at any grid each (output column, k) of each
+    phase lies in exactly one tile of one block below the grid, each tile
+    fits a stage, and a block's tiles come in column order."""
+    config = TransformerConfig(**CONFIGS[name])
+    E, V = config.embed_dim, dk.vocab_pad(config)
+    shapes = {"qkv": (3 * E, E), "proj": (E, E), "fc": (4 * E, E), "fp": (E, 4 * E),
+              "logits": (V, E)}
+    tiles = dw.wide_tiles(config, grid, DTYPES[dtype])
+    assert list(tiles) == list(shapes)
+    for phase, (N, K) in shapes.items():
+        owned = np.zeros((N, K), np.int32)
+        last = {}
+        for block, col0, cols, k0, klen, size in tiles[phase]:
+            assert 0 <= block < grid and size <= dw.STAGE_BYTES
+            assert cols % 8 == 0 and cols <= 8 * dw.MAX_TILE_UNITS and klen % 16 == 0
+            assert last.get(block, (-1, -1)) < (col0, k0)
+            last[block] = (col0, k0)
+            owned[col0:col0 + cols, k0:k0 + klen] += 1
+        assert (owned == 1).all(), phase
+    if grid == 132 and name == "flagship":
+        # One tile a phase a block: 24, 8, 32, 8 columns of qkv, proj, fc, fp.
+        assert [tiles[p][0][2] for p in shapes] == [24, 8, 32, 8, 8]
+
+
+@pytest.mark.parametrize("grid", [1, 64, 132, 264])
+def test_every_attention_item_is_owned_once(grid):
+    """``wide_attention_items`` (the mirror of ``plan_splits`` and the item
+    loop): each (row, head)'s keys [0, key_pos] are split into consecutive
+    non-empty ranges, at most one for every 64 keys and at most
+    ``MAX_SPLITS``, each on one block below the grid, whose warp groups'
+    quarters cover it exactly once; at B=8 x 16 heads on 132 blocks a
+    (row, head) has one block (no merge across blocks), at B=1 eight."""
+    heads = 16
+    for key_positions in ([0], [63, 64, 700], [1023] * 8, [5, 100, 2047, 64, 128, 900, 0, 31]):
+        items = dw.wide_attention_items(key_positions, heads, grid)
+        seen = {}
+        for row, head, split, j0, j1, block, quarters in items:
+            assert 0 <= block < grid and j1 > j0
+            assert len(quarters) == dw.GROUPS_PER_BLOCK
+            keys = [j for k0, k1 in quarters for j in range(k0, k1)]
+            assert keys == list(range(j0, j1))
+            seen.setdefault((row, head), []).append((split, j0, j1))
+        assert len(seen) == len(key_positions) * heads
+        for (row, _), splits in seen.items():
+            n = key_positions[row] + 1
+            splits.sort()
+            assert [s for s, _, _ in splits] == list(range(len(splits)))
+            assert splits[0][1] == 0 and splits[-1][2] == n
+            assert all(a[2] == b[1] for a, b in zip(splits, splits[1:]))
+            assert len(splits) <= min(dw.MAX_SPLITS, -(-n // dw.MIN_SPLIT_KEYS))
+    if grid == 132:
+        assert len(dw.wide_attention_items([1023] * 8, heads, grid)) == 8 * heads
+        assert len(dw.wide_attention_items([1023], heads, grid)) == heads * 8

@@ -397,8 +397,8 @@ def test_kernel_limits_and_inputs():
     flagship = TransformerConfig(vocab_size=390, embed_dim=1024, window_size=2048,
                                  num_layers=8, num_heads=16, use_relative_attention=True)
     assert dws.wide_segment_kernel_fits(flagship, 8, 2048)
-    assert dws.wide_segment_smem_bytes(flagship, 8, 2048) == 256 + 4 * (
-        64 + 512 + 8 * 1024 + 8 * 4096)
+    assert dws.wide_segment_smem_bytes(flagship, 8, 2048) == (
+        dws.STEP_INFO_BYTES + 4 * (64 + 1024) + 4 * 8 * 1024 * 2 + 2 * dw.STAGE_BYTES)
     assert not dws.wide_segment_kernel_fits(flagship, 9, 256)
     assert not dws.wide_segment_kernel_fits(
         TransformerConfig(vocab_size=390, embed_dim=1000, num_heads=8), 2, 256)
