@@ -184,6 +184,36 @@ Phases (any failure exits non-zero):
    p95 and the busy share are printed, and two segments of the resident
    route ``auto`` took before are timed on the same weights.
 
+10. The HTTP layer: ``build_server(service, config, port=0)`` on loopback in
+   a daemon thread, posted to with ``urllib`` (every call with a timeout),
+   with the `serve` defaults (``max_batch_size`` 8, ``max_wait_ms`` 20,
+   ``default_length`` 1024) and bf16 weights. (a) ``GenerationService`` on
+   the default model, one greedy request of 10 + 1014 events: the
+   speculative kernel launches once and ``decode_generate`` never,
+   ``/v1/health`` shows ``spec_requests`` 1 with an acceptance, and the ids
+   equal ``generate_ids(engine="megakernel")``'s. (b) A burst of 16 from 16
+   threads, prompts of 10, 12 and 16 events (two of them ``midi_base64``
+   files written by the port's codec, with ``prompt_length`` 10 and
+   ``return_midi``), 1014 events each, 8 greedy and 8 sampled with mixed
+   top-k / top-p: ``decode_generate`` launches, some batch holds more than
+   one row, every response is its prompt and 1014 ids in the vocabulary,
+   greedy responses equal their prompt's lone ``engine="megakernel"`` run,
+   every token passes ``sampled_token_gap`` teacher-forced through the
+   plain bf16 forward with the fused kernels' noise of (the batch's seed,
+   padded row, step) (``served_token_gap``), and the MIDI responses
+   decode; events/s, latency p50 / p95 from ``/v1/health`` and on the
+   clients' clock, the batch sizes and the busy share (CUDA events around
+   each launch) are printed.
+   (c) ``ContinuousGenerationService`` behind the same handler: 4 streamed
+   greedy requests launch ``decode_segment`` and their ndjson chunks
+   concatenate to the blocking responses. (d) ``GenerationService`` on the
+   flagship, 8 requests of 10 + 246 events at once (4 greedy, 4 sampled):
+   ``decode_wide`` launches and nothing else, every token passes the same
+   rule; events/s printed. (e) ``admission_prefill_case``:
+   ``ContinuousGenerationService`` in float32 on the card, 100-event
+   prompts give identical greedy ids token by token, with the admission
+   prefill and from a prefix-cache hit, whose counter rises once.
+
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
 H100 SXM's published peaks, the resident decode kernels' bytes counting
@@ -192,8 +222,9 @@ each step's weights and K/V prefixes again where they outgrow the 50 MB L2
 (dtype, head_dim) built, told apart by ``variant``, ``dtype`` and
 ``head_dim``; ``cluster``, the blocks a sequence took, for the cluster
 kernels, else null; for the speculative and the two wide kernels
-``parent_ms``, the ``--parent`` checkout's times or null), then, as the
-last line, ``{"ok": true, "device": {...}}``.
+``parent_ms``, the ``--parent`` checkout's times or null; ``http_launches``,
+the kernel's launches in phase 10 (a)-(d), read from its wrapper's count), then, as the last line,
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-planted-faults
 
@@ -2762,6 +2793,442 @@ def wide_serve_path(device, card: str, flagship, first_ms) -> dict:
     return {"launches": launches, "wall": wall}
 
 
+HTTP_TIMEOUT = 600  # seconds: the bound on every request of phase 10
+FLAGSHIP_HTTP_EVENTS = 246  # phase 10d: 10 + 246 events, kept short for time
+
+
+class HttpServing:
+    """``build_server(service, config, port=0)`` on loopback in a daemon
+    thread. ``close`` shuts the server down."""
+
+    def __init__(self, service, yaml_config):
+        from composer_tpu_torch.serving import build_server
+
+        self.server = build_server(service, yaml_config, port=0)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def url(self, path: str) -> str:
+        return f"http://127.0.0.1:{self.server.server_port}{path}"
+
+    def post(self, payload: dict):
+        """The JSON response, or for ``stream`` the ndjson lines."""
+        import urllib.request
+
+        request = urllib.request.Request(self.url("/v1/generate"),
+                                         data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=HTTP_TIMEOUT) as response:
+            if payload.get("stream"):
+                return [json.loads(line) for line in response]
+            return json.loads(response.read())
+
+    def health(self) -> dict:
+        import urllib.request
+
+        with urllib.request.urlopen(self.url("/v1/health"), timeout=HTTP_TIMEOUT) as response:
+            return json.loads(response.read())
+
+    def post_all(self, payloads) -> list:
+        """Posts every payload from its own thread at once; re-raises the
+        first failure. ``self.client_s`` keeps each request's time on the
+        client's clock, connection included."""
+        results = [None] * len(payloads)
+        self.client_s = [None] * len(payloads)
+
+        def call(i):
+            start = time.perf_counter()
+            try:
+                results[i] = self.post(payloads[i])
+            except Exception as error:  # re-raised below, on the caller's thread
+                results[i] = error
+            self.client_s[i] = time.perf_counter() - start
+
+        threads = [threading.Thread(target=call, args=(i,), daemon=True)
+                   for i in range(len(payloads))]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=HTTP_TIMEOUT)
+        for i, result in enumerate(results):
+            if result is None or isinstance(result, Exception):
+                raise AssertionError(f"request {i} failed: {result!r}")
+        return results
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+
+
+class BatchSpy:
+    """Records each ``generate_ids`` call of a ``GenerationService`` (the
+    padded prompts, their lengths, the seed and the sampling vectors), so
+    that a response can be traced to its batch row and Philox noise."""
+
+    def __init__(self):
+        from composer_tpu_torch.train import generate as gen
+
+        self.gen, self.real, self.calls = gen, gen.generate_ids, []
+
+        def spy(model, model_type, params, prompts, **kwargs):
+            self.calls.append((np.asarray(prompts).copy(), kwargs))
+            return self.real(model, model_type, params, prompts, **kwargs)
+
+        gen.generate_ids = spy
+
+    def restore(self):
+        self.gen.generate_ids = self.real
+
+    def row_of(self, prompt, temperature):
+        """(seed, padded row, top_k, top_p) of the first batch row holding
+        ``prompt`` at ``temperature`` (padding rows come after it)."""
+        for prompts, kwargs in self.calls:
+            for row, plen in enumerate(kwargs["prompt_lengths"]):
+                if plen == len(prompt) and np.array_equal(prompts[row, :plen], prompt) \
+                        and kwargs["temperature"][row] == np.float32(temperature):
+                    return (kwargs["seed"], row, int(kwargs["top_k"][row]),
+                            float(kwargs["top_p"][row]))
+        raise AssertionError("a response has no batch row")
+
+
+def served_token_gap(packed, config, ids, plen: int, temperature: float, noise_key) -> float:
+    """The bf16 rule for one served response (prompt of ``plen`` ids, then
+    its generation): teacher-forced through the plain bf16 forward, a sampled
+    row adding the fused kernels' Philox noise of (seed, padded row, step),
+    every token must be one a kernel could have picked with every logit
+    within 1% of their scale (``sampled_token_gap``). Returns the gap over
+    the scale."""
+    from composer_tpu_torch.ops.decode_kernel_spec import teacher_forced_logits
+
+    device, vpad, vocab = packed["wte"].device, packed["wte"].shape[0], config.vocab_size
+    logits = teacher_forced_logits(packed, ids, config=config)[plen - 1:-1, :vocab]
+    seed, row, top_k, top_p = noise_key
+    scaled, noise = logits, torch.zeros_like(logits)
+    if temperature > 0:
+        steps = plen - 1 + np.arange(len(ids) - plen)
+        scaled = logits / temperature
+        noise = gumbel_rows(seed, row, steps, vpad, device)[:, :vocab]
+    else:
+        top_k, top_p = 0, 0.0
+    scale = float(scaled.abs().max())
+    tokens = torch.as_tensor(ids[plen:], dtype=torch.long, device=device)
+    gap = sampled_token_gap(scaled, noise, tokens, top_k, top_p, BF16_LOGIT_REL_TOL * scale)
+    if not gap <= BF16_LOGIT_REL_TOL * scale:
+        raise AssertionError(f"a served token scores {gap} below the best it could have "
+                             f"sampled > {BF16_LOGIT_REL_TOL} x {scale}")
+    return gap / scale
+
+
+def midi_prompt_body(yaml_config, pitch: int) -> dict:
+    """A ``midi_base64`` prompt written by the port's MIDI codec."""
+    import base64
+
+    from composer_tpu_torch.midi.events import Note, NoteSequence
+
+    notes = [Note(250.0 * i, 250.0 * i + 400.0, pitch + (i * 7) % 12, 60 + (i % 3) * 16)
+             for i in range(12)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "prompt.mid"
+        NoteSequence(notes).to_midi(str(path))
+        data = path.read_bytes()
+    return {"midi_base64": base64.b64encode(data).decode(), "prompt_length": PROMPT_EVENTS,
+            "return_midi": True}
+
+
+def kernel_launch_counts() -> dict:
+    """Every kernel wrapper's launch count, one key a kernel entry of the
+    JSON line (the flash kernels by direction and variant)."""
+    from composer_tpu_torch.ops import decode_kernel_segmented as seg
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+    from composer_tpu_torch.ops import decode_kernel_wide_segmented as dws
+    from composer_tpu_torch.ops import flash_attention as fa
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+    from composer_tpu_torch.ops.decode_kernel_spec import spec_decode
+
+    counts = {"batched": decode_generate.launches_batched,
+              "single": decode_generate.launches_single, "spec": spec_decode.launches,
+              "segment": seg.decode_segment.launches, "wide": dw.decode_wide.launches,
+              "segment_wide": dws.decode_segment_wide.launches}
+    for direction, wrapper in (("fwd", fa.flash_attention_forward),
+                               ("bwd", fa.flash_attention_backward)):
+        for (route, depth), count in wrapper.launches.items():
+            counts[f"flash_{direction} {route} {depth}"] = count
+    return counts
+
+
+def reset_kernel_launch_counts() -> None:
+    from composer_tpu_torch.ops import decode_kernel_segmented as seg
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+    from composer_tpu_torch.ops import decode_kernel_wide_segmented as dws
+    from composer_tpu_torch.ops import flash_attention as fa
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+    from composer_tpu_torch.ops.decode_kernel_spec import spec_decode
+
+    decode_generate.launches_batched = decode_generate.launches_single = 0
+    spec_decode.launches = seg.decode_segment.launches = dw.decode_wide.launches = 0
+    dws.decode_segment_wide.launches = 0
+    for wrapper in (fa.flash_attention_forward, fa.flash_attention_backward):
+        wrapper.launches = dict.fromkeys(wrapper.launches, 0)
+
+
+def admission_prefill_case(model, device) -> dict:
+    """Phase 10e (and ``tests/test_torch_cuda_segment.py``): the continuous
+    service's admission prefill and prefix cache on the card, float32
+    weights. A 100-event prompt gives identical greedy ids when admitted
+    token by token (``prefill_min`` 0), with the prefill forward
+    (``prefill_min`` 4, no prefix cache) and from a prefix-cache hit; the
+    hit counter rises once for the repeat. Returns the three services' ids
+    and the cached service's gauges."""
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.serving import ContinuousGenerationService
+
+    rng = np.random.default_rng(31)
+    long_prompt = rng.integers(0, 390, 100).astype(np.int32)
+    other = rng.integers(0, 390, 100).astype(np.int32)
+    outputs, stats = {}, {}
+    for label, prefill_min, cache_mb in (("forced", 0, 0.0), ("prefilled", 4, 0.0),
+                                         ("cached", 4, 8.0)):
+        service = ContinuousGenerationService(
+            model, ModelType.TRANSFORMER, None, 390, slots=2, seg_steps=64, cache_len=512,
+            dtype=torch.float32, prefill_min=prefill_min, prefix_cache_mb=cache_mb,
+            device=device)
+        try:
+            outputs[label] = [service.submit(p, 64, temperature=0.0, deadline_ms=300_000)
+                              for p in (long_prompt, long_prompt, other)]
+            stats[label] = service.overload_stats()
+        finally:
+            service.close()
+    for label in ("prefilled", "cached"):
+        for index, (ours, forced) in enumerate(zip(outputs[label], outputs["forced"])):
+            if not np.array_equal(ours, forced):
+                raise AssertionError(f"{label} admission {index} differs from token-by-token "
+                                     f"admission in {int((ours != forced).sum())} ids")
+    if stats["prefilled"]["prefix_cache_hits"] or stats["cached"]["prefix_cache_hits"] != 1 \
+            or stats["cached"]["prefix_cache_misses"] != 2:
+        raise AssertionError(f"prefix cache counters: {stats}")
+    return {"outputs": outputs, "stats": stats["cached"]}
+
+
+def http_path(device, card: str, flagship, flagship_packed) -> dict:
+    """Phase 10: the HTTP layer on the card, ``build_server`` on loopback
+    with the `serve` defaults (``max_batch_size`` 8, ``max_wait_ms`` 20,
+    ``default_length`` 1024), bf16: (a) a lone greedy request, (b) a burst
+    of 16 from 16 threads, (c) ``ContinuousGenerationService`` behind the
+    same handler, streaming, (d) the flagship, (e) the admission prefill and
+    prefix cache in float32. Returns the launches of each kernel over
+    (a)-(d)."""
+    import base64
+
+    from composer_tpu_torch.midi.midi_io import parse_midi
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.ops import _build
+    from composer_tpu_torch.ops import decode_kernel as dk
+    from composer_tpu_torch.serving import (
+        ContinuousGenerationService,
+        GenerationService,
+        _prompt_from_json,
+    )
+    from composer_tpu_torch.train import generate as gen
+
+    start = time.perf_counter()
+    model, yaml_config = build_model(False, device)
+    config = model.config
+    packed = dk.pack_weights(model.state_dict(), config, dtype=torch.bfloat16, device=device)
+    launches = {}
+
+    def megakernel(prompt, length):
+        return gen.generate_ids(model, ModelType.TRANSFORMER, None, prompt, length=length,
+                                temperature=0.0, engine="megakernel")
+
+    # (a) A lone greedy request: the speculative kernel.
+    prompt = encoded_prompt(yaml_config, PROMPT_EVENTS)
+    service = GenerationService(model, ModelType.TRANSFORMER, None, 390)
+    serving = HttpServing(service, yaml_config)
+    try:
+        reset_kernel_launch_counts()
+        lone = serving.post({"events": prompt.tolist(), "length": GENERATE_EVENTS,
+                             "temperature": 0.0})["events"]
+        counts = kernel_launch_counts()
+        health = serving.health()
+    finally:
+        serving.close()
+        service.close()
+    launches["a"] = counts
+    print(f"http (a) lone greedy request: launches {counts}; health spec_requests "
+          f"{health['spec_requests']}, spec_acceptance_last {health['spec_acceptance_last']}, "
+          f"backend {health['backend']}", flush=True)
+    if counts["spec"] != 1 or counts["batched"] or counts["single"]:
+        raise AssertionError("the lone greedy request did not run on the speculative kernel alone")
+    if health["spec_requests"] != 1 or health["spec_acceptance_last"] is None \
+            or health["backend"] != device.type:
+        raise AssertionError(f"/v1/health: {health}")
+    if not np.array_equal(lone, megakernel(prompt, GENERATE_EVENTS)):
+        raise AssertionError("the served greedy ids differ from engine='megakernel'")
+
+    # (b) A burst of 16 from 16 threads: ragged prompts of 10, 12 and 16
+    # events (two of them MIDI files), 8 greedy and 8 sampled.
+    rng = np.random.default_rng(41)
+    sampling = [(0.0, 0, 0.0)] * 8 + [(1.0, k, p) for k, p in (
+        (0, 0.0), (40, 0.0), (0, 0.9), (20, 0.95), (5, 0.0), (0, 0.8), (100, 0.9), (0, 0.0))]
+    payloads, prompts = [], []
+    for i, (temperature, top_k, top_p) in enumerate(sampling):
+        if i in (0, 8):
+            body = midi_prompt_body(yaml_config, 55 + i)
+            ids = _prompt_from_json(body, yaml_config, PROMPT_EVENTS)
+        else:
+            ids = rng.integers(0, 390, (10, 12, 16)[i % 3]).astype(np.int32)
+            body = {"events": ids.tolist()}
+        payloads.append({**body, "length": GENERATE_EVENTS, "temperature": temperature,
+                         "top_k": top_k, "top_p": top_p})
+        prompts.append(ids)
+    if len({p.tobytes() for p in prompts}) != 16:
+        raise AssertionError("the burst's prompts are not distinct")
+    service = GenerationService(model, ModelType.TRANSFORMER, None, 390)
+    try:
+        serving = HttpServing(service, yaml_config)
+        spans = {name: KernelSpans(_build.load_library(name))
+                 for name in ("decode_generate", "spec_decode")}
+        load_library = _build.load_library
+        spy = BatchSpy()
+        origin = torch.cuda.Event(enable_timing=True)
+        try:
+            serving.post({"events": prompts[1].tolist(), "length": 64})  # warm-up
+            spy.calls.clear()
+            _build.load_library = lambda name="decode_generate": (
+                spans[name] if name in spans else load_library(name))
+            reset_kernel_launch_counts()
+            origin.record()  # the worker launches on the same (default) stream
+            wall = time.perf_counter()
+            responses = serving.post_all(payloads)
+            wall = time.perf_counter() - wall
+            counts = kernel_launch_counts()
+            health = serving.health()
+            batch_sizes = service.batch_sizes[1:]
+            client_s = sorted(serving.client_s)
+        finally:
+            _build.load_library = load_library
+            spy.restore()
+            serving.close()
+    finally:
+        service.close()
+    launches["b"] = counts
+    spans = [span for kernel in spans.values() for span in kernel.spans]
+    torch.cuda.synchronize()
+    busy_ms = sum(begin.elapsed_time(end) for begin, end in spans)
+    window_ms = (max(origin.elapsed_time(end) for _, end in spans)
+                 - min(origin.elapsed_time(begin) for begin, _ in spans))
+    print(f"http (b) burst: 16 x (10/12/16 + {GENERATE_EVENTS}) from 16 threads through "
+          f"build_server in {wall:.3f} s (host clock), {16 * GENERATE_EVENTS / wall:.1f} events/s; "
+          f"latency p50 {health['latency_p50_s']:.3f} s, p95 {health['latency_p95_s']:.3f} s "
+          f"(/v1/health; on the clients' clock, connection included: min {client_s[0]:.3f}, "
+          f"median {client_s[8]:.3f}, max {client_s[-1]:.3f} s); batch sizes {batch_sizes}; "
+          f"launches {counts}; device busy share "
+          f"{busy_ms / window_ms:.5f} (CUDA events around each launch: {busy_ms:.2f} ms of a "
+          f"{window_ms:.2f} ms device window) [{card}]", flush=True)
+    if counts["batched"] < 1 or max(batch_sizes) < 2:
+        raise AssertionError("the burst was not coalesced onto decode_generate")
+    worst = 0.0
+    for i, (response, ids) in enumerate(zip(responses, prompts)):
+        events = np.asarray(response["events"], np.int32)
+        plen = len(ids)
+        if events.shape != (plen + GENERATE_EVENTS,) or events.min() < 0 \
+                or events.max() >= 390 or not np.array_equal(events[:plen], ids):
+            raise AssertionError(f"burst request {i}: bad response {events.shape}")
+        temperature = sampling[i][0]
+        if temperature == 0 and not np.array_equal(events, megakernel(ids, GENERATE_EVENTS)):
+            raise AssertionError(f"burst request {i}: greedy ids differ from its lone "
+                                 "engine='megakernel' run")
+        worst = max(worst, served_token_gap(packed, config, events, plen, temperature,
+                                            spy.row_of(ids, temperature)))
+        if "midi_base64" in payloads[i]:
+            midi = parse_midi(base64.b64decode(response["midi_base64"]))
+            if not sum(len(instrument.notes) for instrument in midi.instruments):
+                raise AssertionError(f"burst request {i}: the returned MIDI holds no notes")
+    print(f"http (b) burst: greedy responses equal their lone engine='megakernel' runs; every "
+          f"token, teacher-forced through the plain bf16 forward, within {worst:.3e} of scale "
+          f"(limit {BF16_LOGIT_REL_TOL}); both MIDI responses decode", flush=True)
+
+    # (c) The continuous service behind the same handler: ndjson streams.
+    rng = np.random.default_rng(43)
+    stream_prompts = [rng.integers(0, 390, PROMPT_EVENTS).tolist() for _ in range(4)]
+    service = ContinuousGenerationService(model, ModelType.TRANSFORMER, None, 390)
+    serving = HttpServing(service, yaml_config)
+    try:
+        reset_kernel_launch_counts()
+        bodies = [{"events": p, "length": GENERATE_EVENTS, "temperature": 0.0}
+                  for p in stream_prompts]
+        streams = serving.post_all([{**body, "stream": True} for body in bodies])
+        blocking = serving.post_all(bodies)
+        counts = kernel_launch_counts()
+    finally:
+        serving.close()
+        service.close()
+    launches["c"] = counts
+    chunks = [len(lines) - 2 for lines in streams]
+    print(f"http (c) continuous service behind build_server: 4 streamed greedy requests, "
+          f"{chunks} chunks after the prompt echo; launches {counts}", flush=True)
+    if counts["segment"] < 1:
+        raise AssertionError("the continuous service did not launch decode_segment")
+    for lines, response in zip(streams, blocking):
+        if lines[-1] != {"done": True} or [t for line in lines[:-1] for t in line["events"]] \
+                != response["events"]:
+            raise AssertionError("a stream differs from the blocking response")
+
+    # (d) The flagship behind HTTP: the wide kernel.
+    rng = np.random.default_rng(47)
+    flagship_sampling = [(0.0, 0, 0.0)] * 4 + [(1.0, 0, 0.0), (1.0, 40, 0.0), (1.0, 0, 0.9),
+                                                (1.0, 20, 0.95)]
+    flagship_prompts = [rng.integers(0, 390, PROMPT_EVENTS).astype(np.int32) for _ in range(8)]
+    service = GenerationService(flagship, ModelType.TRANSFORMER, None, 390)
+    serving = HttpServing(service, yaml_config)
+    spy = BatchSpy()
+    try:
+        serving.post({"events": flagship_prompts[0].tolist(), "length": 16})  # packs the weights
+        spy.calls.clear()
+        reset_kernel_launch_counts()
+        wall = time.perf_counter()
+        responses = serving.post_all([
+            {"events": p.tolist(), "length": FLAGSHIP_HTTP_EVENTS, "temperature": t,
+             "top_k": k, "top_p": q} for p, (t, k, q) in zip(flagship_prompts, flagship_sampling)])
+        wall = time.perf_counter() - wall
+        counts = kernel_launch_counts()
+        batch_sizes = service.batch_sizes[1:]
+    finally:
+        spy.restore()
+        serving.close()
+        service.close()
+    launches["d"] = counts
+    print(f"http (d) flagship: 8 x ({PROMPT_EVENTS} + {FLAGSHIP_HTTP_EVENTS}) from 8 threads in "
+          f"{wall:.3f} s (host clock), {8 * FLAGSHIP_HTTP_EVENTS / wall:.1f} events/s; batch "
+          f"sizes {batch_sizes}; launches {counts} [{card}]", flush=True)
+    if counts["wide"] < 1 or counts["batched"] or counts["single"] or counts["spec"]:
+        raise AssertionError("the flagship behind HTTP did not run on decode_wide alone")
+    worst = 0.0
+    for response, ids, (temperature, _, _) in zip(responses, flagship_prompts, flagship_sampling):
+        events = np.asarray(response["events"], np.int32)
+        if events.shape != (PROMPT_EVENTS + FLAGSHIP_HTTP_EVENTS,) or events.max() >= 390 \
+                or events.min() < 0 or not np.array_equal(events[:PROMPT_EVENTS], ids):
+            raise AssertionError(f"flagship response: bad ids {events.shape}")
+        worst = max(worst, served_token_gap(flagship_packed, flagship.config, events,
+                                            PROMPT_EVENTS, temperature,
+                                            spy.row_of(ids, temperature)))
+    print(f"http (d) flagship: every token, teacher-forced through the plain bf16 forward, "
+          f"within {worst:.3e} of scale (limit {BF16_LOGIT_REL_TOL})", flush=True)
+
+    # (e) The admission prefill and the prefix cache on the card, float32.
+    case = admission_prefill_case(model, device)
+    print(f"http (e) continuous admission, float32, 100-event prompts: token by token, with "
+          f"the prefill forward and from the prefix cache, identical greedy ids; prefix cache "
+          f"hits {case['stats']['prefix_cache_hits']}, misses "
+          f"{case['stats']['prefix_cache_misses']}", flush=True)
+    total = {name: sum(counts[name] for counts in launches.values())
+             for name in launches["a"]}
+    print(f"phase 10 took {time.perf_counter() - start:.1f} s (host clock); launches {total}",
+          flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -2821,6 +3288,7 @@ def main() -> int:
     wide_segment_error = wide_segment_vs_plain(device, flagship)
     wide_segment = wide_segment_timings(device, card, flagship, parent)
     wide_serve = wide_serve_path(device, card, flagship, wide_segment["first_ms"])
+    http = http_path(device, card, flagship, wide_path["fused_packed"])
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -2833,7 +3301,7 @@ def main() -> int:
             "source": source, "replaces": replaces, "launches": path["launches"][form],
             "max_abs_err": errors[form], "ms": times[form][0], "plain_ms": times[form][1],
             "bound_ms": ms, "bound_by": by, "library_ms": None,
-            "cluster": path["clusters"][form]})
+            "cluster": path["clusters"][form], "http_launches": http[form]})
     flash_launches = {("mma", 16): training["launches"][("mma", 16)],
                       ("mma", 64): flagship_training["launches"],
                       ("scalar", 16): training["launches"][("scalar", 16)]}
@@ -2858,28 +3326,31 @@ def main() -> int:
                 "row_rel_err": check.get("row_rel_err"), "ms": times[direction],
                 "plain_ms": times[f"plain_{direction}"], "bound_ms": times[f"bound_{direction}"],
                 "bound_by": times[f"bound_by_{direction}"],
-                "library_ms": times[f"sdpa_{direction}"], "cluster": None})
+                "library_ms": times[f"sdpa_{direction}"], "cluster": None,
+                "http_launches": http[f"flash_{direction} {variant[0]} {variant[1]}"]})
     kernels.append({
         "name": "spec_decode (B=1)", "route": "cuda",
         "source": "composer_tpu_torch/csrc/spec_decode.cu",
         "replaces": "composer_tpu/ops/decode_kernel_spec.py:120", "launches": spec["launches"],
         "max_abs_err": spec_error, "ms": spec["ms"], "plain_ms": spec["plain_ms"],
         "bound_ms": spec["bound_ms"], "bound_by": spec["bound_by"], "library_ms": None,
-        "cluster": spec["cluster"], "parent_ms": spec["parent_ms"]})
+        "cluster": spec["cluster"], "parent_ms": spec["parent_ms"],
+        "http_launches": http["spec"]})
     kernels.append({
         "name": "decode_segment", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_segment.cu",
         "replaces": "composer_tpu/ops/decode_kernel_segmented.py:62",
         "launches": serve["launches"], "max_abs_err": segment_error, "ms": segment["ms"],
         "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
-        "bound_by": segment["bound_by"], "library_ms": None, "cluster": segment["cluster"]})
+        "bound_by": segment["bound_by"], "library_ms": None, "cluster": segment["cluster"],
+        "http_launches": http["segment"]})
     wide_bound_ms, wide_bound_by = wide[8]["bound bf16"]
     kernels.append({
         "name": "decode_wide", "route": "cuda", "source": "composer_tpu_torch/csrc/decode_wide.cu",
         "replaces": "composer_tpu/ops/decode_kernel_wide.py:153", "launches": wide_path["launches"],
         "max_abs_err": wide_error, "ms": wide[8]["bf16"], "plain_ms": wide[8]["plain_ms"],
         "bound_ms": wide_bound_ms, "bound_by": wide_bound_by, "library_ms": None,
-        "cluster": None, "parent_ms": wide[8]["parent_ms"]})
+        "cluster": None, "parent_ms": wide[8]["parent_ms"], "http_launches": http["wide"]})
     kernels.append({
         "name": "decode_segment_wide", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_wide_segment.cu",
@@ -2887,7 +3358,8 @@ def main() -> int:
         "launches": wide_serve["launches"], "max_abs_err": wide_segment_error,
         "ms": wide_segment["ms"], "plain_ms": wide_segment["plain_ms"],
         "bound_ms": wide_segment["bound_ms"], "bound_by": wide_segment["bound_by"],
-        "library_ms": None, "cluster": None, "parent_ms": wide_segment["parent_ms"]})
+        "library_ms": None, "cluster": None, "parent_ms": wide_segment["parent_ms"],
+        "http_launches": http["segment_wide"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

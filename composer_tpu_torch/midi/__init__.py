@@ -1,5 +1,5 @@
 """MIDI-like sequences and the event-token codec: the port's copy of
-``composer_tpu/midi`` (events, vocabulary, MIDI writer)."""
+``composer_tpu/midi`` (events, vocabulary, MIDI reader and writer)."""
 
 from composer_tpu_torch.midi.events import (
     Event,

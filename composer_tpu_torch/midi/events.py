@@ -2,9 +2,8 @@
 
 The port's copy of ``composer_tpu/midi/events.py`` (the port imports nothing
 of the JAX package). It leaves out what needs the ``.data`` serialization
-and the MIDI reader (``from_midi``, ``to_integer_encoding``,
-``to_one_hot_encoding``, ``from_file``); ``tests/test_torch_codec.py`` holds
-the copy to the original.
+(``to_integer_encoding``, ``to_one_hot_encoding``, ``from_file``);
+``tests/test_torch_codec.py`` holds the copy to the original.
 
 Behavioural parity surface: composer/dataset/sequence.py (reference). The
 observable semantics — event ordering at equal timestamps, the time-shift
@@ -252,6 +251,13 @@ class NoteSequence:
         from composer_tpu_torch.midi import midi_io
 
         midi_io.write_note_sequence(self, filepath, program=program)
+
+    @staticmethod
+    def from_midi(filepath, programs=None, ignore_drums: bool = True) -> "NoteSequence":
+        """Parses a Standard MIDI File into a NoteSequence (times in ms)."""
+        from composer_tpu_torch.midi import midi_io
+
+        return midi_io.read_note_sequence(filepath, programs=programs, ignore_drums=ignore_drums)
 
 
 def _extend_notes_through_sustains(ordered_notes: List[Note], ordered_sustains) -> None:

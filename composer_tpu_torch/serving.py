@@ -1,31 +1,55 @@
-"""Continuous-batching generation service: port of ``composer_tpu/serving.py``
-(``ContinuousGenerationService`` and the overload controls it shares).
+"""Serving: port of ``composer_tpu/serving.py``.
 
-A worker thread owns the device. The token loop runs in fixed-step
-segments of a Hopper kernel with the KV cache kept on the card between
-segments: ``decode_segment`` (``ops/decode_kernel_segmented.py``, one block
-per slot, weights read from the L2) or, for a model whose packed weights
-outgrow the L2, ``decode_segment_wide`` (``ops/decode_kernel_wide_segmented.py``,
-the weights streamed once per step for all slots). At every segment
-boundary finished rows are evicted
-(their waiters unblock at once) and queued requests are admitted into free
-slots, each with its own position clock. Two segments stay in flight: the
-worker launches segment k+1 before it reads segment k's tokens, so the
-device does not idle while the host collects them; admission therefore lags
-eviction by one segment.
+Two engines behind one HTTP layer, each with a worker thread that owns the
+device:
 
-The HTTP layer (``GenerationService``, ``build_server``) is not ported yet
-(ROADMAP.md, Queue 1 item 7).
+* ``GenerationService``, what ``composer serve`` runs by default: HTTP
+  threads enqueue requests and block, and the worker coalesces requests with
+  the same (prompt-length bucket, length bucket) into one
+  ``generate_ids(engine="auto")`` call, so a batch runs ``decode_generate``,
+  a lone greedy request ``spec_decode`` and a model whose weights outgrow
+  the card's L2 ``decode_wide``. Sampling settings ride into the kernels as
+  per-row vectors; prompts pad to the power-of-two bucket width with their
+  real lengths in ``prompt_lengths``; the batch decodes to the length bucket
+  and each row is truncated to its requested length.
+* ``ContinuousGenerationService``, what ``composer serve --continuous``
+  runs: the token loop runs in fixed-step segments of a Hopper kernel with
+  the KV cache kept on the card between segments: ``decode_segment``
+  (``ops/decode_kernel_segmented.py``, weights read from the L2) or, for a
+  model whose packed weights outgrow the L2, ``decode_segment_wide``
+  (``ops/decode_kernel_wide_segmented.py``, the weights streamed once per
+  step for all slots). At every segment boundary finished rows are evicted
+  (their waiters unblock at once) and queued requests are admitted into free
+  slots, each with its own position clock. Two segments stay in flight: the
+  worker launches segment k+1 before it reads segment k's tokens, so the
+  device does not idle while the host collects them; admission therefore
+  lags eviction by one segment.
+
+``build_server`` serves either over HTTP:
+
+* ``POST /v1/generate``: a JSON body with either ``events`` (a list of event
+  ids) or ``midi_base64`` (a base64 Standard MIDI File) as the prompt, plus
+  optional ``length``, ``temperature``, ``top_k``, ``top_p``,
+  ``prompt_length``, ``deadline_ms``, ``stream`` and ``return_midi``.
+  Responds with the ``events`` (prompt included) and, for MIDI prompts or
+  ``return_midi``, a ``midi_base64`` rendering; with ``stream``, ndjson
+  chunks. A full queue answers 429, an expired deadline 503.
+* ``GET /v1/health``: the model, the device type and the services' gauges.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
+import json
+import logging
 import os
 import queue
+import tempfile
 import threading
 import time
 from collections import OrderedDict, deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
@@ -37,11 +61,13 @@ from composer_tpu_torch.exceptions import (
     RequestCancelledError,
     ServiceOverloadedError,
 )
+from composer_tpu_torch.midi.events import EventSequence, NoteSequence
 from composer_tpu_torch.models import ModelType
 from composer_tpu_torch.models.transformer import init_cache
 from composer_tpu_torch.ops import decode_kernel as dk
 from composer_tpu_torch.ops import decode_kernel_segmented as seg
 from composer_tpu_torch.ops import decode_kernel_wide_segmented as wseg
+from composer_tpu_torch.train import generate as gen
 from composer_tpu_torch.train.generate import _use_wide_kernel
 
 
@@ -76,10 +102,23 @@ def _fail(request: _Request, error: Exception) -> None:
     request.done.set()
 
 
+def _pow2_ceil(n: int) -> int:
+    size = 1
+    while size < n:
+        size *= 2
+    return size
+
+
+def _bucket(n: int, cap: int) -> int:
+    return min(_pow2_ceil(n), max(cap, n))
+
+
 class _OverloadControlMixin:
-    """Bounded-queue admission, per-request deadlines, cancellation and
-    latency/queue gauges. The speculative-engine fields are reported as
-    zeros: the continuous engine never runs the speculative kernel."""
+    """``submit`` and its checks, bounded-queue admission, per-request
+    deadlines, cancellation, latency/queue gauges and the worker thread's
+    device, shared by both services. The speculative-engine fields count the batches that
+    ``GenerationService`` served through the speculative kernel; the
+    continuous engine never runs it and reports zeros."""
 
     def _init_overload(self, max_queue_depth: int, default_deadline_ms: float) -> None:
         # 0 disables each control.
@@ -92,6 +131,36 @@ class _OverloadControlMixin:
         self._latencies = deque(maxlen=512)  # seconds, completed requests
         self.spec_requests = 0
         self._spec_acceptances = deque(maxlen=256)  # tokens per verify block
+
+    def submit(self, prompt_ids, length: int, temperature: float = 1.0, top_k: int = 0,
+               top_p: float = 0.0, deadline_ms=None,
+               cancel: Optional[threading.Event] = None) -> np.ndarray:
+        """Blocks until the request is generated; returns prompt + new ids.
+        ``deadline_ms`` bounds queue and device time together; ``cancel``
+        drops the request when set."""
+        request = self._request(prompt_ids, length, temperature, top_k, top_p, deadline_ms,
+                                cancel)
+        self._enqueue(request)
+        return self._await(request)
+
+    def _request(self, prompt_ids, length, temperature, top_k, top_p, deadline_ms,
+                 cancel) -> _Request:
+        request = _Request(np.asarray(prompt_ids, dtype=np.int32).reshape(-1), int(length),
+                           float(temperature), int(top_k), float(top_p),
+                           deadline=self._deadline_from(deadline_ms))
+        if cancel is not None:
+            request.cancel = cancel
+        self._validate(request)
+        return request
+
+    def _validate(self, request: _Request):
+        prompt = request.prompt_ids
+        if prompt.size == 0:
+            raise InvalidParameterError("Prompt must contain at least one event.")
+        if prompt.min() < 0 or prompt.max() >= self.vocab_size:
+            raise InvalidParameterError(f"Prompt ids must be in [0, {self.vocab_size}).")
+        if request.length <= 0:
+            raise InvalidParameterError("length must be positive.")
 
     def _enqueue(self, request: _Request) -> None:
         """Admission, atomic with close() and the queue-depth bound."""
@@ -193,14 +262,22 @@ class _OverloadControlMixin:
             _fail(leftover, InvalidParameterError(
                 "The generation service was closed before this request ran."))
 
+    def _run(self):
+        if self.device.type == "cuda":
+            # The current device is per thread.
+            with torch.cuda.device(self.device):
+                self._serve()
+        else:
+            self._serve()
 
-def _service_device(device) -> torch.device:
+
+def _service_device(device, service: str) -> torch.device:
     """The card unless the caller names another device; raises when the
     card is asked for and torch has no CUDA."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("ContinuousGenerationService needs a CUDA device (torch has no "
-                           "CUDA here); pass device='cpu' to run the plain version")
+        raise RuntimeError(f"{service} needs a CUDA device (torch has no CUDA here); pass "
+                           "device='cpu' to run the plain versions")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
@@ -215,6 +292,208 @@ def _service_engine(model, engine: str, cache_len: int, device) -> str:
         wide = _use_wide_kernel(model, ModelType.TRANSFORMER, cache_len, "auto", device)
         return "wide" if wide else "resident"
     return engine
+
+
+def _kernel_admits(model, model_type, cache_len: int, weights_outgrow_l2: bool) -> bool:
+    """Whether ``generate_ids(engine="auto")`` on the card runs every batch
+    of a ``cache_len``-row cache on a decode kernel and not on the unfused
+    path: the wide kernel where the weights outgrow the L2 and its limits
+    admit the cache, else the fused one, both for any batch size (the
+    speculative kernel takes only a lone greedy request). The L2 question
+    comes answered, so that no CUDA call is made here."""
+    if weights_outgrow_l2 and gen._use_wide_kernel(model, model_type, cache_len, "wide", None):
+        return True
+    return gen._use_kernel(model, model_type, cache_len, "megakernel", None)
+
+
+class GenerationService(_OverloadControlMixin):
+    """Run-to-completion serving: batches concurrent generation requests
+    through one device worker (see the module docstring).
+
+    Same surface as the JAX package's service: ``submit``, ``close``,
+    ``overload_stats``, ``max_batch_size``, ``batch_sizes`` and
+    ``requests_completed``. ``variables`` is a state_dict for ``model`` or
+    None for its own parameters; they are copied to ``device``.
+
+    What differs from the JAX package: ``device`` (the card by default,
+    raising where torch has no CUDA; ``"cpu"`` runs the plain paths of
+    ``generate_ids``); on the card the constructor builds and loads the
+    kernels its route needs, so a build failure raises here and not in a
+    request. On the card, a request whose padded cache no decode kernel
+    admits (``_kernel_admits``) is refused, where the JAX package runs it
+    unfused. ``mesh`` must be None (ROADMAP.md, Queue 1 item 8). There is no
+    ``wide_batch_pad``: the JAX package pads every batch of a wide model to
+    ``max_batch_size`` because each batch size is a multi-minute Mosaic
+    compile, while a CUDA kernel has no per-shape compile and ``decode_wide``
+    at 8 rows costs more than at 1. The JAX worker keeps one batch in flight, since its
+    ``generate_ids`` returns a device array; the port's returns host ids, so
+    each batch is harvested as soon as it has run.
+    """
+
+    def __init__(self, model, model_type: ModelType, variables, vocab_size: int,
+                 max_batch_size: int = 8, max_wait_ms: float = 20.0, seed: int = 0,
+                 max_queue_depth: int = 0, default_deadline_ms: float = 0.0, mesh=None,
+                 device=None):
+        if model_type != ModelType.TRANSFORMER:
+            raise NotImplementedError(
+                "MusicRNN generation is not ported yet (ROADMAP.md, Queue 1 item 6).")
+        if mesh is not None:
+            raise NotImplementedError(
+                "Serving on a device mesh is not ported yet (ROADMAP.md, Queue 1 item 8).")
+        self.device = _service_device(device, type(self).__name__)
+        self.model = model
+        self.model_type = model_type
+        self.vocab_size = vocab_size
+        state = variables if variables is not None else model.state_dict()
+        self.params = {name: t.detach().to(self.device) for name, t in state.items()}
+        self.max_batch_size = max(1, int(max_batch_size))
+        self.max_wait_s = max(0.0, float(max_wait_ms) / 1000.0)
+        # Read once here: request checks run on handler threads, which make
+        # no CUDA call.
+        self._weights_outgrow_l2 = gen._weights_outgrow_fast_memory(model, self.device)
+        if self.device.type == "cuda":
+            from composer_tpu_torch.ops import _build
+
+            libraries = (("decode_wide",) if self._weights_outgrow_l2
+                         else ("decode_generate", "spec_decode"))
+            _build.build_all(libraries)
+            for name in libraries:
+                _build.load_library(name)
+        self.batch_sizes = []  # rows of each batch run
+        self.requests_completed = 0
+        self._seed = seed
+        self._seed_lock = threading.Lock()
+        self._closed = False
+        # Guards the closed-check-then-enqueue pair in submit() against
+        # close(), and the overload gauges.
+        self._submit_lock = threading.Lock()
+        self._init_overload(max_queue_depth, default_deadline_ms)
+        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._worker = threading.Thread(target=self._run, name="generation-worker", daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------------ public
+    def close(self):
+        """Stops the worker after the batch it runs (waiting at most 30 s)
+        and fails the requests still queued."""
+        with self._submit_lock:
+            self._closed = True
+            self._queue.put(None)
+        self._worker.join(timeout=30)
+        self._drain_queue()
+
+    def _validate(self, request: _Request):
+        super()._validate(request)
+        cache_len = sum(self._signature(request))  # the batch's prompt width + length
+        if self.device.type == "cuda" and not _kernel_admits(
+                self.model, self.model_type, cache_len, self._weights_outgrow_l2):
+            raise InvalidParameterError(
+                f"No decode kernel admits a {cache_len}-row cache for this model (prompt "
+                f"{request.prompt_ids.shape[0]} and length {request.length}, each rounded up "
+                f"to a power of two); use a shorter prompt or length.")
+
+    # ------------------------------------------------------------------ worker
+    def _next_seed(self) -> int:
+        with self._seed_lock:
+            self._seed += 1
+            return self._seed
+
+    @staticmethod
+    def _signature(request: _Request):
+        """Coalescing key: the power-of-two buckets of the prompt length
+        (ragged prompts share a batch) and of the length. Sampling settings
+        are per-row operands and never split a batch."""
+        return (_pow2_ceil(int(request.prompt_ids.shape[0])), _pow2_ceil(request.length))
+
+    def _serve(self):
+        while True:
+            request = self._queue.get()
+            if request is None:
+                return
+            self._take_pending()
+            if not self._admissible(request):  # cancelled or expired while queued
+                continue
+            batch, deferred = [request], []
+            signature = self._signature(request)
+            deadline = time.monotonic() + self.max_wait_s
+            closing = False
+            # Coalesce compatible requests until the batch fills or the wait
+            # window closes; incompatible ones go back for a later batch.
+            while len(batch) < self.max_batch_size:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    closing = True
+                    break
+                self._take_pending()
+                if not self._admissible(nxt):
+                    continue
+                (batch if self._signature(nxt) == signature else deferred).append(nxt)
+            for item in deferred:
+                with self._submit_lock:
+                    self._pending += 1
+                self._queue.put(item)
+            self._harvest(self._dispatch(batch))
+            if closing:
+                return
+
+    def _dispatch(self, batch):
+        """Runs the padded batch through ``generate_ids``; returns what
+        ``_harvest`` needs, or None when the batch failed (its waiters are
+        then unblocked with the error)."""
+        try:
+            rows = len(batch)
+            padded = _bucket(rows, self.max_batch_size)
+            pad = padded - rows
+            # Rows pad to the bucket width; their real lengths ride into the
+            # kernels as teacher-forcing boundaries. Padding rows replicate
+            # the last request, its prompt and its sampling settings.
+            filled = batch + [batch[-1]] * pad
+            plens = np.asarray([r.prompt_ids.shape[0] for r in filled], np.int32)
+            width = _pow2_ceil(int(plens.max()))
+            prompts = np.zeros((padded, width), np.int32)
+            for row, r in enumerate(filled):
+                prompts[row, :plens[row]] = r.prompt_ids
+            temps = np.asarray([r.temperature for r in filled], np.float32)
+            topks = np.asarray([r.top_k for r in filled], np.int32)
+            topps = np.asarray([r.top_p for r in filled], np.float32)
+            bucket_len = self._signature(batch[0])[1]
+            spec_before = gen.SPEC_DISPATCHES
+            ids = gen.generate_ids(
+                self.model, self.model_type, self.params, prompts, length=bucket_len,
+                temperature=temps, seed=self._next_seed(), top_k=topks, top_p=topps,
+                prompt_lengths=plens, engine="auto")
+            if gen.SPEC_DISPATCHES > spec_before and gen.LAST_SPEC_STATS is not None:
+                # Served by the speculative kernel: its realized acceptance,
+                # tokens per generation block (``LAST_SPEC_STATS[1]``, the
+                # JAX package's layout), for /v1/health.
+                self.spec_requests += 1
+                self._spec_acceptances.append(bucket_len / max(int(gen.LAST_SPEC_STATS[1]), 1))
+            self.batch_sizes.append(rows)
+            return batch, ids, width
+        except Exception as error:  # surface to every waiter, keep serving
+            for request in batch:
+                _fail(request, error)
+            return None
+
+    def _harvest(self, snapshot):
+        """Unblocks a batch's waiters with their rows."""
+        if snapshot is None:  # the batch failed; its waiters already know
+            return
+        batch, ids, width = snapshot
+        # A row's generation starts right after the padded prompt columns;
+        # each response is its own prompt and its requested length.
+        for row, request in enumerate(batch):
+            request.result = np.concatenate(
+                [request.prompt_ids, ids[row, width:width + request.length]])
+            # Counted before the waiter wakes, so the gauges include it.
+            self._record_completion(request)
+            request.done.set()
 
 
 class ContinuousGenerationService(_OverloadControlMixin):
@@ -259,7 +538,7 @@ class ContinuousGenerationService(_OverloadControlMixin):
         if engine not in ("auto", "resident", "wide"):
             raise InvalidParameterError(
                 f"Continuous engine must be auto/resident/wide, got {engine!r}.")
-        self.device = _service_device(device)
+        self.device = _service_device(device, type(self).__name__)
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.model = model
@@ -348,27 +627,6 @@ class ContinuousGenerationService(_OverloadControlMixin):
         self._worker.start()
 
     # ------------------------------------------------------------------ public
-    def _request(self, prompt_ids, length, temperature, top_k, top_p, deadline_ms,
-                 cancel) -> _Request:
-        request = _Request(np.asarray(prompt_ids, dtype=np.int32).reshape(-1), int(length),
-                           float(temperature), int(top_k), float(top_p),
-                           deadline=self._deadline_from(deadline_ms))
-        if cancel is not None:
-            request.cancel = cancel
-        self._validate(request)
-        return request
-
-    def submit(self, prompt_ids, length: int, temperature: float = 1.0, top_k: int = 0,
-               top_p: float = 0.0, deadline_ms=None,
-               cancel: Optional[threading.Event] = None) -> np.ndarray:
-        """Blocks until the request is generated; returns prompt + new ids.
-        ``deadline_ms`` bounds queue and device time together;  ``cancel``
-        drops the request when set."""
-        request = self._request(prompt_ids, length, temperature, top_k, top_p, deadline_ms,
-                                cancel)
-        self._enqueue(request)
-        return self._await(request)
-
     def submit_stream(self, prompt_ids, length: int, temperature: float = 1.0, top_k: int = 0,
                       top_p: float = 0.0, deadline_ms=None,
                       cancel: Optional[threading.Event] = None):
@@ -416,13 +674,8 @@ class ContinuousGenerationService(_OverloadControlMixin):
         return stats
 
     def _validate(self, request: _Request):
+        super()._validate(request)
         prompt, length = request.prompt_ids, request.length
-        if prompt.size == 0:
-            raise InvalidParameterError("Prompt must contain at least one event.")
-        if prompt.min() < 0 or prompt.max() >= self.vocab_size:
-            raise InvalidParameterError(f"Prompt ids must be in [0, {self.vocab_size}).")
-        if length <= 0:
-            raise InvalidParameterError("length must be positive.")
         if prompt.size > self.width:
             raise InvalidParameterError(
                 f"Prompt of {prompt.size} events exceeds the serving window ({self.width}).")
@@ -587,14 +840,6 @@ class ContinuousGenerationService(_OverloadControlMixin):
                 _fail(request, DeadlineExceededError("Request deadline expired mid-generation."))
                 self._evict(slot)
 
-    def _run(self):
-        if self.device.type == "cuda":
-            # The current device is per thread.
-            with torch.cuda.device(self.device):
-                self._serve()
-        else:
-            self._serve()
-
     def _serve(self):
         inflight = []
         closing = False
@@ -640,3 +885,189 @@ class ContinuousGenerationService(_OverloadControlMixin):
                         _fail(request, error)
                         self._evict(slot)
                 inflight.clear()
+
+
+# ---------------------------------------------------------------------- codec
+def _prompt_from_json(body, config, prompt_length: Optional[int]):
+    """Returns prompt ids from an ``events`` list or ``midi_base64`` field."""
+    if ("events" in body) == ("midi_base64" in body):
+        raise InvalidParameterError(
+            "Provide exactly one of 'events' (a list of event ids) or 'midi_base64' (a base64 "
+            "Standard MIDI File) as the prompt.")
+    if "events" in body:
+        events = body["events"]
+        if not isinstance(events, list) or not all(isinstance(e, int) for e in events):
+            raise InvalidParameterError("'events' must be a list of integers.")
+        ids = np.asarray(events, dtype=np.int32)
+    else:
+        try:
+            midi_bytes = base64.b64decode(body["midi_base64"], validate=True)
+        except Exception:
+            raise InvalidParameterError("'midi_base64' is not valid base64.") from None
+        fd, path = tempfile.mkstemp(suffix=".mid")
+        try:
+            with os.fdopen(fd, "wb") as fh:
+                fh.write(midi_bytes)
+            try:
+                sequence = NoteSequence.from_midi(path).trim_start()
+            except InvalidParameterError:
+                raise
+            except Exception as error:
+                raise InvalidParameterError(f"Could not parse prompt MIDI: {error}") from None
+        finally:
+            os.unlink(path)
+        ids = sequence.to_event_sequence(
+            config.dataset.time_step_increment, config.dataset.max_time_steps,
+            config.dataset.velocity_bins,
+        ).to_ids().astype(np.int32)
+        if ids.size == 0:
+            raise InvalidParameterError("Prompt MIDI contains no events after encoding.")
+    if prompt_length is not None:
+        ids = ids[:int(prompt_length)]
+    return ids
+
+
+def _midi_base64_from_ids(ids, config) -> str:
+    event_sequence = EventSequence.from_ids(
+        np.asarray(ids), config.dataset.time_step_increment, config.dataset.max_time_steps,
+        config.dataset.velocity_bins,
+    )
+    fd, path = tempfile.mkstemp(suffix=".mid")
+    os.close(fd)
+    try:
+        event_sequence.to_note_sequence().to_midi(path)
+        with open(path, "rb") as fh:
+            return base64.b64encode(fh.read()).decode()
+    finally:
+        os.unlink(path)
+
+
+# ----------------------------------------------------------------------- http
+class _Handler(BaseHTTPRequestHandler):
+    # Set by build_server:
+    service: GenerationService = None
+    config = None
+    defaults = None
+
+    def log_message(self, format, *args):  # route through logging
+        logging.debug("serve: " + format, *args)
+
+    def _reply(self, status: int, payload: dict):
+        data = json.dumps(payload).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_GET(self):
+        if self.path != "/v1/health":
+            return self._reply(404, {"error": f"Unknown path '{self.path}'."})
+        service = type(self).service
+        self._reply(200, {
+            "status": "ok",
+            "model_type": service.model_type.value,
+            "vocab_size": service.vocab_size,
+            "backend": service.device.type,
+            "max_batch_size": service.max_batch_size,
+            "requests_served": int(service.requests_completed),
+            **service.overload_stats(),
+        })
+
+    def do_POST(self):
+        if self.path != "/v1/generate":
+            return self._reply(404, {"error": f"Unknown path '{self.path}'."})
+        try:
+            size = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(size) or b"{}")
+            if not isinstance(body, dict):
+                raise InvalidParameterError("Request body must be a JSON object.")
+            defaults = type(self).defaults
+            prompt_ids = _prompt_from_json(body, type(self).config, body.get("prompt_length"))
+            kwargs = dict(
+                length=int(body.get("length", defaults["length"])),
+                temperature=float(body.get("temperature", defaults["temperature"])),
+                top_k=int(body.get("top_k", 0)),
+                top_p=float(body.get("top_p", 0.0)),
+                deadline_ms=body.get("deadline_ms"),
+            )
+            if body.get("stream"):
+                if body.get("return_midi", "midi_base64" in body):
+                    raise InvalidParameterError("return_midi cannot be combined with stream.")
+                return self._stream(type(self).service, prompt_ids, kwargs)
+            ids = type(self).service.submit(prompt_ids, **kwargs)
+        except ServiceOverloadedError as error:
+            # Backpressure: the client should retry with backoff.
+            return self._reply(429, {"error": str(error)})
+        except DeadlineExceededError as error:
+            return self._reply(503, {"error": str(error)})
+        except InvalidParameterError as error:
+            return self._reply(400, {"error": str(error)})
+        except (ValueError, TypeError, json.JSONDecodeError) as error:
+            return self._reply(400, {"error": f"Invalid request: {error}"})
+        except Exception as error:  # generation failure
+            logging.exception("serve: generation failed")
+            return self._reply(500, {"error": str(error)})
+
+        payload = {"events": [int(i) for i in ids]}
+        if body.get("return_midi", "midi_base64" in body):
+            payload["midi_base64"] = _midi_base64_from_ids(ids, type(self).config)
+        self._reply(200, payload)
+
+    def _stream(self, service, prompt_ids, kwargs):
+        """ndjson streaming: one {"events": [...]} line per harvested chunk
+        (the first is the prompt echo), then {"done": true}. The continuous
+        engine emits a chunk per decode segment; the run-to-completion
+        engine emits the whole generation as one chunk. Parameter errors
+        raise before any header is written (submit_stream validates
+        eagerly), so clients still get a clean 400 for those."""
+        cancel = threading.Event()
+        if hasattr(service, "submit_stream"):
+            chunks = service.submit_stream(prompt_ids, cancel=cancel, **kwargs)
+        else:
+            ids = service.submit(prompt_ids, **kwargs)
+            chunks = iter([[int(i) for i in ids]])
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.end_headers()  # HTTP/1.0: closing the connection ends the body
+        try:
+            for chunk in chunks:
+                self.wfile.write(json.dumps({"events": chunk}).encode() + b"\n")
+                self.wfile.flush()
+            self.wfile.write(json.dumps({"done": True}).encode() + b"\n")
+        except (BrokenPipeError, ConnectionResetError):
+            # The client hung up: the continuous engine evicts the row at the
+            # next segment boundary instead of decoding tokens nobody reads.
+            cancel.set()
+            logging.debug("serve: streaming client disconnected; cancelled")
+        except Exception as error:  # a failure mid-stream: the headers are out
+            cancel.set()
+            logging.exception("serve: streaming generation failed")
+            try:
+                self.wfile.write(json.dumps({"error": str(error)}).encode() + b"\n")
+            except OSError:
+                pass
+
+
+class _Server(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5: the connections of a burst
+    # beyond it are dropped by the kernel until their clients retry a second
+    # later (on the card, 2 of a 16-request burst came 0.75 s late).
+    request_queue_size = 128
+
+
+def build_server(service, config, host: str = "127.0.0.1", port: int = 8000,
+                 default_length: int = 1024,
+                 default_temperature: float = 1.0) -> ThreadingHTTPServer:
+    """Builds (without starting) the HTTP server for ``service`` (either
+    engine) bound to ``host:port``.
+
+    ``port=0`` binds an ephemeral port; read ``server.server_port``. Call
+    ``server.serve_forever()`` to run and ``server.shutdown()`` to stop.
+    """
+    handler = type("Handler", (_Handler,), {
+        "service": service,
+        "config": config,
+        "defaults": {"length": default_length, "temperature": default_temperature},
+    })
+    return _Server((host, port), handler)

@@ -1,5 +1,8 @@
 """The port's copies of the framework-free layers (codec, vocabulary, MIDI
-writer, config, dataset windows) against the JAX package's originals."""
+reader and writer, config, dataset windows) against the JAX package's
+originals."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,7 +19,7 @@ from composer_tpu_torch import exceptions
 from composer_tpu_torch.config import get_default
 from composer_tpu_torch.data import WindowDataset
 from composer_tpu_torch.exceptions import DatasetError
-from composer_tpu_torch.midi import events
+from composer_tpu_torch.midi import events, midi_io
 from composer_tpu_torch.models import get_event_vocab_size
 
 
@@ -91,3 +94,85 @@ def test_exceptions_match_the_original(name):
     ours, theirs = getattr(exceptions, name), getattr(jax_exceptions, name)
     assert ours.__doc__ == theirs.__doc__
     assert [base.__name__ for base in ours.__mro__] == [base.__name__ for base in theirs.__mro__]
+
+
+FIXTURES = sorted((Path(__file__).parent / "fixtures" / "pretty_midi").glob("*.mid"))
+
+
+def _written(module, tmp_path, seed):
+    path = tmp_path / f"written_{seed}.mid"
+    module.NoteSequence(_notes(module, seed), _sustains(module, seed)).to_midi(path)
+    return path
+
+
+def _sequence_tuples(sequence):
+    return ([(n.start, n.end, n.pitch, n.velocity) for n in sequence.notes],
+            [(p.start, p.end) for p in sequence.sustain_periods])
+
+
+@pytest.mark.parametrize("source", [f.name for f in FIXTURES] + ["written-0", "written-1"])
+@pytest.mark.parametrize("programs, ignore_drums", [(None, True), (None, False), ({1}, True)])
+def test_midi_reader_matches_the_original(source, programs, ignore_drums, tmp_path):
+    """``read_note_arrays`` and ``read_note_sequence`` give the original's
+    arrays and notes on every fixture and on files the writer produced."""
+    if source.startswith("written"):
+        path = _written(events, tmp_path, int(source[-1]))
+    else:
+        path = Path(__file__).parent / "fixtures" / "pretty_midi" / source
+    ours = midi_io.read_note_arrays(path, programs=programs, ignore_drums=ignore_drums)
+    theirs = jax_midi_io.read_note_arrays(path, programs=programs, ignore_drums=ignore_drums)
+    for mine, reference in zip(ours, theirs, strict=True):
+        assert mine.dtype == reference.dtype
+        np.testing.assert_array_equal(mine, reference)
+    assert _sequence_tuples(midi_io.read_note_sequence(path, programs, ignore_drums)) == \
+        _sequence_tuples(jax_midi_io.read_note_sequence(path, programs, ignore_drums))
+    assert _sequence_tuples(events.NoteSequence.from_midi(path, programs, ignore_drums)) == \
+        _sequence_tuples(jax_events.NoteSequence.from_midi(path, programs, ignore_drums))
+
+
+def test_parse_midi_matches_the_original_on_every_fixture():
+    for path in FIXTURES:
+        ours, theirs = midi_io.parse_midi(path), jax_midi_io.parse_midi(path.read_bytes())
+        assert ours.ticks_per_quarter == theirs.ticks_per_quarter
+        assert [(i.program, i.is_drum, [vars(n) for n in i.notes],
+                 [vars(c) for c in i.control_changes]) for i in ours.instruments] == \
+            [(i.program, i.is_drum, [vars(n) for n in i.notes],
+              [vars(c) for c in i.control_changes]) for i in theirs.instruments]
+
+
+def _bad_midi(kind: str) -> bytes:
+    data = FIXTURES[0].read_bytes()
+    return {
+        "junk": b"junkjunkjunk",
+        "empty": b"",
+        "header-only": data[:14],
+        "short-header": data[:10],
+        "truncated-track": data[: len(data) - 7],
+        "truncated-event": data[:26],
+        "dangling-data-byte": data[:22] + bytes([0x00, 0x40]) + data[24:],
+        "unknown-status": data[:14] + b"MTrk" + (6).to_bytes(4, "big") + bytes([0, 0xF4, 0, 0, 0, 0]),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind", ["junk", "empty", "header-only", "short-header",
+                                  "truncated-track", "truncated-event", "dangling-data-byte",
+                                  "unknown-status"])
+def test_parse_midi_raises_like_the_original(kind):
+    """Truncated and junk bytes: the same exception class (by name, each
+    package has its own) and message, or the same parse where the cut still
+    leaves a readable file."""
+    data = _bad_midi(kind)
+
+    def outcome(module):
+        try:
+            midi = module.parse_midi(data)
+        except Exception as error:  # the class is what is compared
+            return type(error).__name__, str(error)
+        return "ok", [(i.program, [vars(n) for n in i.notes]) for i in midi.instruments]
+
+    ours = outcome(midi_io)
+    assert ours == outcome(jax_midi_io)
+    if kind in ("junk", "empty", "dangling-data-byte", "unknown-status"):
+        assert ours[0] == "InvalidParameterError"
+    elif kind in ("short-header", "truncated-track"):
+        assert ours[0] != "ok"  # struct.error, IndexError

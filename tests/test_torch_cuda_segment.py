@@ -331,3 +331,20 @@ def test_two_and_one_block_clusters(cuda_device, dtype, slots, cluster):
             assert seg.decode_segment.cluster == 16
             assert torch.equal(alone[0], ours[slot]), f"slot {slot}, segments of {step}"
             assert torch.equal(alone_carry[0], carry[slot])
+
+
+def test_admission_prefill_and_prefix_cache_on_the_card(cuda_device):
+    """The continuous service's admission prefill and prefix cache on the
+    card, float32 (``chip_smoke.py`` phase 10e): a 100-event prompt gives
+    identical greedy ids admitted token by token, with the prefill forward
+    and from a prefix-cache hit, and the hit counter rises once."""
+    from chip_smoke import admission_prefill_case
+
+    config = TransformerConfig(vocab_size=390, num_layers=2, initializer_stddev=0.3)
+    model = Transformer(config, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(6))
+    case = admission_prefill_case(model.to(cuda_device).eval(), cuda_device)
+    assert case["stats"]["prefix_cache_hits"] == 1 and case["stats"]["prefix_cache_entries"] == 2
+    forced = case["outputs"]["forced"]
+    assert all(len(ids) == 164 for ids in forced)
+    assert len(set(forced[0][100:].tolist())) > 4  # not a degenerate stream

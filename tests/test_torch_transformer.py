@@ -143,7 +143,8 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'composer_tpu'))\n"
         "missing = {'composer_tpu_torch.ops.decode_kernel_spec', "
-        "'composer_tpu_torch.ops.decode_kernel_segmented', 'composer_tpu_torch.serving'} "
+        "'composer_tpu_torch.ops.decode_kernel_segmented', 'composer_tpu_torch.serving', "
+        "'composer_tpu_torch.midi.midi_io'} "
         "- set(names)\n"
         "print(len(names), 'modules;', bad, 'missing', missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n"
