@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels, holds
-each against its plain PyTorch version, then drives the serving path and
-the training path.
+each against its plain PyTorch version, then drives the serving path, the
+training path, the HTTP layer and the CLI.
 
     python3 chip_smoke.py
 
@@ -214,6 +214,26 @@ Phases (any failure exits non-zero):
    prompts give identical greedy ids token by token, with the admission
    prefill and from a prefix-cache hit, whose counter rises once.
 
+11. The port's CLI, ``python -m composer_tpu_torch.cli``, as users run it,
+   at the default model's full width (vocab 390, embed 256, 8 layers x 16
+   heads, window 1024, batch 8, bf16): 24 MIDI files of 400 random notes
+   (numpy seed 11, written by the port's codec); ``make-config``, then
+   ``use_pallas_attention: true`` and batch 8 in that config;
+   ``preprocess`` (transform and split: 16 train files in 160 ``.data``
+   files, 8 test files); ``train -e 1``, whose flash launches must be 8 a
+   step each way; ``evaluate`` (flash forward only); ``generate -l 1014
+   --prompt-length 10`` from a MIDI prompt, sampled (one ``decode_generate``
+   B=1 launch) and greedy (one ``spec_decode`` launch), each MIDI identical
+   to ``generate_ids`` on the restored weights, and the sampled one again as
+   a fresh process (its start-up); each command in process (``cli.main``),
+   the wrappers' counts read around it. Then ``serve`` as a subprocess
+   (every wait bounded, SIGINT at the end; it logs its launches): a lone
+   greedy request must show in ``/v1/health``'s spec gauges and equal the
+   in-process greedy run, and 8 sampled requests at once launch
+   ``decode_generate`` B>1; and ``serve --continuous`` with one request
+   launches ``decode_segment``. Prints each command's wall time, the train
+   step time and events/s, evaluate's loss, and generate's events/s.
+
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
 H100 SXM's published peaks, the resident decode kernels' bytes counting
@@ -223,7 +243,9 @@ each step's weights and K/V prefixes again where they outgrow the 50 MB L2
 ``head_dim``; ``cluster``, the blocks a sequence took, for the cluster
 kernels, else null; for the speculative and the two wide kernels
 ``parent_ms``, the ``--parent`` checkout's times or null; ``http_launches``,
-the kernel's launches in phase 10 (a)-(d), read from its wrapper's count), then, as the last line,
+the kernel's launches in phase 10 (a)-(d), read from its wrapper's count;
+``cli_launches``, its launches in phase 11, in process and behind both
+servers), then, as the last line,
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-planted-faults
@@ -235,7 +257,9 @@ kernels pass and every fault fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -2939,37 +2963,15 @@ def midi_prompt_body(yaml_config, pitch: int) -> dict:
 def kernel_launch_counts() -> dict:
     """Every kernel wrapper's launch count, one key a kernel entry of the
     JSON line (the flash kernels by direction and variant)."""
-    from composer_tpu_torch.ops import decode_kernel_segmented as seg
-    from composer_tpu_torch.ops import decode_kernel_wide as dw
-    from composer_tpu_torch.ops import decode_kernel_wide_segmented as dws
-    from composer_tpu_torch.ops import flash_attention as fa
-    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
-    from composer_tpu_torch.ops.decode_kernel_spec import spec_decode
+    from composer_tpu_torch.ops import launch_counts
 
-    counts = {"batched": decode_generate.launches_batched,
-              "single": decode_generate.launches_single, "spec": spec_decode.launches,
-              "segment": seg.decode_segment.launches, "wide": dw.decode_wide.launches,
-              "segment_wide": dws.decode_segment_wide.launches}
-    for direction, wrapper in (("fwd", fa.flash_attention_forward),
-                               ("bwd", fa.flash_attention_backward)):
-        for (route, depth), count in wrapper.launches.items():
-            counts[f"flash_{direction} {route} {depth}"] = count
-    return counts
+    return launch_counts()
 
 
 def reset_kernel_launch_counts() -> None:
-    from composer_tpu_torch.ops import decode_kernel_segmented as seg
-    from composer_tpu_torch.ops import decode_kernel_wide as dw
-    from composer_tpu_torch.ops import decode_kernel_wide_segmented as dws
-    from composer_tpu_torch.ops import flash_attention as fa
-    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
-    from composer_tpu_torch.ops.decode_kernel_spec import spec_decode
+    from composer_tpu_torch.ops import reset_launch_counts
 
-    decode_generate.launches_batched = decode_generate.launches_single = 0
-    spec_decode.launches = seg.decode_segment.launches = dw.decode_wide.launches = 0
-    dws.decode_segment_wide.launches = 0
-    for wrapper in (fa.flash_attention_forward, fa.flash_attention_backward):
-        wrapper.launches = dict.fromkeys(wrapper.launches, 0)
+    reset_launch_counts()
 
 
 def admission_prefill_case(model, device) -> dict:
@@ -3229,6 +3231,363 @@ def http_path(device, card: str, flagship, flagship_packed) -> dict:
     return total
 
 
+CLI_FILES, CLI_NOTES = 24, 400  # phase 11's corpus: MIDI files of random notes
+CLI_SEED = 11
+CLI_TIMEOUT = 300  # seconds: the bound on every wait for a CLI subprocess
+
+
+def cli_corpus(raw: Path) -> None:
+    """``CLI_FILES`` MIDI files of ``CLI_NOTES`` random notes each (numpy
+    seed ``CLI_SEED``), written by the port's ``NoteSequence.to_midi``."""
+    from composer_tpu_torch.midi.events import Note, NoteSequence
+
+    rng = np.random.default_rng(CLI_SEED)
+    raw.mkdir(parents=True)
+    for index in range(CLI_FILES):
+        starts = np.cumsum(rng.integers(0, 400, CLI_NOTES))
+        lengths = rng.integers(50, 1500, CLI_NOTES)
+        pitches, velocities = rng.integers(36, 96, CLI_NOTES), rng.integers(20, 127, CLI_NOTES)
+        notes = [Note(float(s), float(s + d), int(p), int(v))
+                 for s, d, p, v in zip(starts, lengths, pitches, velocities)]
+        NoteSequence(notes).to_midi(str(raw / f"piece{index:02d}.mid"))
+
+
+class Spans:
+    """Host-clock seconds spent inside some functions while a command runs
+    (a CUDA synchronize after each call), by patching them for the duration."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds, self.calls = targets, {}, {}
+
+    def __enter__(self):
+        self.saved = []
+        for name, (owner, attribute) in self.targets.items():
+            real = getattr(owner, attribute)
+            self.saved.append((owner, attribute, real))
+            self.seconds[name], self.calls[name] = [], 0
+
+            def timed(*args, _real=real, _name=name, **kwargs):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                result = _real(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[_name].append(time.perf_counter() - start)
+                return result
+
+            setattr(owner, attribute, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attribute, real in self.saved:
+            setattr(owner, attribute, real)
+
+
+def cli_command(args, spans=None) -> tuple:
+    """One in-process command of the port's CLI (``cli.main`` as the
+    ``__main__`` guard runs it, errors propagating): ``(wall seconds, the
+    kernels' launches during it)``."""
+    from composer_tpu_torch import cli
+
+    reset_kernel_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with spans if spans is not None else contextlib.nullcontext():
+        code = cli.cli.main([str(a) for a in args], standalone_mode=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    if code not in (None, 0):
+        raise AssertionError(f"cli {args[:3]} exited {code}")
+    return wall, kernel_launch_counts()
+
+
+def run_cli_process(args) -> None:
+    """``python -m composer_tpu_torch.cli <args>`` in a process of its own,
+    from the repository's root, bounded by ``CLI_TIMEOUT``."""
+    result = subprocess.run([sys.executable, "-m", "composer_tpu_torch.cli", *map(str, args)],
+                            cwd=Path(__file__).resolve().parent, timeout=CLI_TIMEOUT,
+                            capture_output=True, text=True)
+    if result.returncode != 0:
+        raise AssertionError(f"cli {args[:4]} exited {result.returncode}: "
+                             f"{result.stderr[-2000:]}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_json(url: str, payload=None):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    request = urllib.request.Request(url, data=data,
+                                     headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(request, timeout=CLI_TIMEOUT) as response:
+        return json.loads(response.read())
+
+
+def serve_subprocess(args, log: Path, requests) -> tuple:
+    """``python -m composer_tpu_torch.cli ... serve`` as a user starts it:
+    waits (bounded) for ``/v1/health``, posts each list of ``requests`` from
+    its own threads at once, reads the health, then stops the server with
+    SIGINT. Returns ``(seconds to come up, responses by list, health, the
+    kernels' launches that the server logged at shutdown)``."""
+    import signal
+    import urllib.error
+
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    start = time.perf_counter()
+    with open(log, "wb") as sink:
+        process = subprocess.Popen(
+            [sys.executable, "-m", "composer_tpu_torch.cli", *map(str, args), "--port",
+             str(port)], cwd=Path(__file__).resolve().parent, stdout=sink,
+            stderr=subprocess.STDOUT, env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    try:
+        while True:
+            if process.poll() is not None:
+                raise AssertionError(f"serve exited {process.returncode}: {log.read_text()}")
+            if time.perf_counter() - start > CLI_TIMEOUT:
+                raise AssertionError(f"serve did not come up: {log.read_text()[-2000:]}")
+            try:
+                http_json(base + "/v1/health")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.2)
+        up_s = time.perf_counter() - start
+        responses = []
+        for payloads in requests:
+            results = [None] * len(payloads)
+
+            def call(i, payloads=payloads, results=results):
+                try:
+                    results[i] = http_json(base + "/v1/generate", payloads[i])
+                except Exception as error:  # re-raised below, on this thread
+                    results[i] = error
+
+            threads = [threading.Thread(target=call, args=(i,), daemon=True)
+                       for i in range(len(payloads))]
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join(timeout=CLI_TIMEOUT)
+            for result in results:
+                if result is None or isinstance(result, Exception):
+                    raise AssertionError(f"a request to serve failed: {result!r}")
+            responses.append(results)
+        health = http_json(base + "/v1/health")
+        process.send_signal(signal.SIGINT)
+        code = process.wait(timeout=CLI_TIMEOUT)
+    finally:
+        if process.poll() is None:
+            process.kill()
+            process.wait(timeout=60)
+    text = log.read_text()
+    if code != 0:
+        raise AssertionError(f"serve exited {code} after SIGINT: {text[-2000:]}")
+    marker = "Kernel launches: "
+    lines = [line for line in text.splitlines() if marker in line]
+    if not lines:
+        raise AssertionError(f"serve logged no launches: {text[-2000:]}")
+    return up_s, responses, health, json.loads(lines[-1].split(marker, 1)[1])
+
+
+def cli_path(device, card: str) -> dict:
+    """Phase 11: the port's CLI on the card, at the default model's full
+    width. Returns the launches of each kernel over the phase's commands
+    (the in-process ones and the two servers)."""
+    import yaml
+
+    from composer_tpu_torch import cli as cli_module
+    from composer_tpu_torch.config import get as get_config
+    from composer_tpu_torch.midi.events import EventSequence, NoteSequence
+    from composer_tpu_torch.models import ModelType, create_model
+    from composer_tpu_torch.train import generate as gen
+    from composer_tpu_torch.train import trainer as trainer_module
+
+    phase_start = time.perf_counter()
+    totals, walls = {}, {}
+
+    def record(name, wall, counts):
+        walls[name] = wall
+        for key, count in counts.items():
+            totals[key] = totals.get(key, 0) + count
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        raw, processed, logs = tmp / "raw", tmp / "processed", tmp / "logs"
+        cli_corpus(raw)
+        seed = ("--seed", CLI_SEED)
+
+        record("make-config", *cli_command([*seed, "make-config", tmp / "config.yml"]))
+        source = yaml.safe_load((tmp / "config.yml").read_text())
+        source["transformer"]["model"]["use_pallas_attention"] = True
+        source["transformer"]["train"]["batch_size"] = TRAIN_BATCH
+        (tmp / "config.yml").write_text(yaml.safe_dump(source))
+        config = get_config(tmp / "config.yml")
+
+        # preprocess launches no kernel: it runs as users run it, a process of
+        # its own, whose workers import neither torch nor this script.
+        start = time.perf_counter()
+        run_cli_process([*seed, "preprocess", "transformer", raw, processed, "-c",
+                         tmp / "config.yml", "-w", 8])
+        record("preprocess", time.perf_counter() - start, {})
+        train_files = len(list((processed / "train").glob("*.data")))
+        test_files = len(list((processed / "test").glob("*.data")))
+        train_midi = int(CLI_FILES * 0.7)  # preprocess's default split, 30% to test
+        if (train_files, test_files) != (train_midi * 10, CLI_FILES - train_midi):
+            # each train file and its 9 transposed or stretched copies
+            raise AssertionError(f"preprocess wrote {train_files} train / {test_files} test "
+                                 f"files, wanted {train_midi * 10} / {CLI_FILES - train_midi}")
+
+        spans = Spans({"step": (trainer_module.Trainer, "train_step"),
+                       "create": (cli_module, "create_model"),
+                       "load": (cli_module, "get_dataset")})
+        wall, train_counts = cli_command(
+            [*seed, "train", "transformer", processed, "-c", tmp / "config.yml", "--logdir",
+             logs, "-e", 1, "--save-freq-mode", "epoch", "--no-show-progress-bar"], spans)
+        record("train", wall, train_counts)
+        logdir = next(logs.glob("transformer-*"))
+        steps = spans.seconds["step"]
+        rows = [json.loads(line) for line in
+                (logdir / "train" / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["value"] for r in sorted(rows, key=lambda r: r["step"])
+                  if r["name"] == "loss"]
+        scalar = [r["value"] for r in rows if r["name"] == "events_per_second"][0]
+        step_ms = float(np.mean(steps[1:])) * 1e3
+        print(f"cli train: {train_files} train / {test_files} test .data files from "
+              f"{CLI_FILES} MIDI files; {len(steps)} steps of {TRAIN_BATCH} x {TRAIN_WINDOW}, "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step {step_ms:.2f} ms (steps 2-, "
+              f"host clock after synchronize; min {min(steps[1:]) * 1e3:.2f}, max "
+              f"{max(steps[1:]) * 1e3:.2f}), {TRAIN_BATCH * TRAIN_WINDOW / (step_ms / 1e3):.1f} "
+              f"train events/s; step 1 {steps[0] * 1e3:.2f} ms; the trainer's "
+              f"events_per_second scalar {scalar:.1f}; the command {wall:.3f} s = model "
+              f"{spans.seconds['create'][0]:.3f} s + data {spans.seconds['load'][0]:.3f} s + "
+              f"steps {sum(steps):.3f} s + the rest (config, init, checkpoint) "
+              f"{wall - spans.seconds['create'][0] - spans.seconds['load'][0] - sum(steps):.3f}"
+              f" s; launches {train_counts} [{card}]", flush=True)
+        expected = (8 * len(steps),) * 2
+        if (train_counts["flash_fwd mma 16"], train_counts["flash_bwd mma 16"]) != expected \
+                or not np.all(np.isfinite(losses)) or len(losses) != len(steps):
+            raise AssertionError(f"cli train: launches {train_counts}, wanted {expected} "
+                                 f"each way; losses {losses}")
+
+        scores = []
+        evaluate = trainer_module.Trainer.evaluate
+        trainer_module.Trainer.evaluate = \
+            lambda self, *a, **k: scores.append(evaluate(self, *a, **k)) or scores[-1]
+        try:
+            wall, eval_counts = cli_command([*seed, "evaluate", "transformer", processed, logdir])
+        finally:
+            trainer_module.Trainer.evaluate = evaluate
+        record("evaluate", wall, eval_counts)
+        print(f"cli evaluate: loss {scores[0]['loss']:.6f}, accuracy "
+              f"{scores[0]['accuracy']:.6f}, perplexity {scores[0]['perplexity']:.3f}; "
+              f"launches {eval_counts} [{card}]", flush=True)
+        if eval_counts["flash_fwd mma 16"] < 1 or eval_counts["flash_bwd mma 16"] \
+                or not np.isfinite(scores[0]["loss"]):
+            raise AssertionError(f"cli evaluate: launches {eval_counts}, metrics {scores}")
+
+        # The prompt as generate encodes it: the first 10 events of a MIDI file.
+        prompt_file = raw / "piece00.mid"
+        prompt = NoteSequence.from_midi(str(prompt_file)).trim_start().to_event_sequence(
+            config.dataset.time_step_increment, config.dataset.max_time_steps,
+            config.dataset.velocity_bins).to_ids().astype(np.int32)[:PROMPT_EVENTS]
+        model, _ = create_model(ModelType.TRANSFORMER, config, device=device)
+        restored = trainer_module.Trainer(model, ModelType.TRANSFORMER, 1e-3, device=device)
+        restored.restore(logdir, TRAIN_BATCH, TRAIN_WINDOW)
+        reference = {}
+        for name, temperature in (("sampled", 1.0), ("greedy", 0.0)):
+            out = tmp / f"{name}.mid"
+            kernel = "megakernel_generate_batched" if temperature else "speculative_generate"
+            spans = Spans({"create": (cli_module, "create_model"),
+                           "restore": (trainer_module.Trainer, "restore"),
+                           "decode": (gen, "generate_ids"),
+                           "pack": (gen.TransformerDecoder, "__init__"),
+                           "kernel": (gen, kernel)})
+            wall, counts = cli_command(
+                [*seed, "generate", "transformer", logdir, out, "-p", prompt_file,
+                 "--prompt-length", PROMPT_EVENTS, "-l", GENERATE_EVENTS, "--temperature",
+                 temperature], spans)
+            record(f"generate {name}", wall, counts)
+            ids = gen.generate_ids(model, ModelType.TRANSFORMER, None, prompt,
+                                   length=GENERATE_EVENTS, temperature=temperature,
+                                   seed=CLI_SEED, engine="auto")
+            reference[name] = ids
+            path = tmp / f"{name}_in_process.mid"
+            EventSequence.from_ids(ids, config.dataset.time_step_increment,
+                                   config.dataset.max_time_steps,
+                                   config.dataset.velocity_bins).to_note_sequence().to_midi(
+                str(path))
+            same = out.read_bytes() == path.read_bytes()
+            took = {key: sum(values) for key, values in spans.seconds.items()}
+            print(f"cli generate {name}: {wall:.3f} s in process = model {took['create']:.3f} s"
+                  f" + restore {took['restore']:.3f} s + generate_ids {took['decode']:.3f} s "
+                  f"({GENERATE_EVENTS / took['decode']:.1f} events/s; of it packing the weights "
+                  f"{took['pack']:.3f} s, {kernel} {took['kernel']:.3f} s) + the rest "
+                  f"{wall - took['create'] - took['restore'] - took['decode']:.3f} s; MIDI "
+                  f"identical to generate_ids on the restored weights: {same}; launches "
+                  f"{counts} [{card}]", flush=True)
+            wanted = ("single", "spec") if name == "sampled" else ("spec", "single")
+            if not same or counts[wanted[0]] != 1 or counts[wanted[1]] or counts["batched"]:
+                raise AssertionError(f"cli generate {name}: identical {same}, launches {counts}")
+
+        # The same sampled command as a user runs it: a fresh process, whose
+        # start-up (interpreter, torch, the CUDA context, the kernels' load)
+        # the in-process wall does not hold.
+        start = time.perf_counter()
+        run_cli_process([*seed, "generate", "transformer", logdir, tmp / "fresh.mid", "-p",
+                         prompt_file, "--prompt-length", PROMPT_EVENTS, "-l", GENERATE_EVENTS])
+        fresh_s = time.perf_counter() - start
+        same = (tmp / "fresh.mid").read_bytes() == (tmp / "sampled.mid").read_bytes()
+        print(f"cli generate sampled as a fresh process: {fresh_s:.3f} s wall, "
+              f"{fresh_s - walls['generate sampled']:.3f} s more than in process (start-up); "
+              f"MIDI identical: {same} [{card}]", flush=True)
+        if not same:
+            raise AssertionError("a fresh generate process wrote other MIDI")
+
+        body = {"events": prompt.tolist(), "length": GENERATE_EVENTS}
+        up_s, responses, health, counts = serve_subprocess(
+            [*seed, "serve", "transformer", logdir], tmp / "serve.log",
+            [[{**body, "temperature": 0.0}], [{**body, "temperature": 1.0}] * 8])
+        record("serve", up_s, counts)
+        lone = np.asarray(responses[0][0]["events"])
+        burst = [np.asarray(r["events"]) for r in responses[1]]
+        print(f"cli serve: up in {up_s:.3f} s; lone greedy request equal to the in-process "
+              f"greedy run: {np.array_equal(lone, reference['greedy'])}; health spec_requests "
+              f"{health['spec_requests']}, spec_acceptance_last "
+              f"{health['spec_acceptance_last']}; launches {counts} [{card}]", flush=True)
+        if not np.array_equal(lone, reference["greedy"]) or health["spec_requests"] != 1 \
+                or counts["spec"] != 1 or counts["batched"] < 1:
+            raise AssertionError(f"cli serve: health {health}, launches {counts}")
+        for events in burst:
+            if events.shape != (PROMPT_EVENTS + GENERATE_EVENTS,) or events.min() < 0 \
+                    or events.max() >= 390 or not np.array_equal(events[:PROMPT_EVENTS], prompt):
+                raise AssertionError(f"cli serve: a bad sampled response {events.shape}")
+
+        up_s, responses, health, counts = serve_subprocess(
+            [*seed, "serve", "transformer", logdir, "--continuous"],
+            tmp / "serve_continuous.log", [[{**body, "temperature": 0.0}]])
+        record("serve --continuous", up_s, counts)
+        events = np.asarray(responses[0][0]["events"])
+        agree = float(np.mean(events[PROMPT_EVENTS:] == reference["greedy"][PROMPT_EVENTS:]))
+        print(f"cli serve --continuous: up in {up_s:.3f} s; one greedy request, agreement with "
+              f"the in-process greedy run {agree:.4f} (bf16); launches {counts} [{card}]",
+              flush=True)
+        if counts["segment"] < 1 or events.shape != (PROMPT_EVENTS + GENERATE_EVENTS,) \
+                or events.min() < 0 or events.max() >= 390:
+            raise AssertionError(f"cli serve --continuous: launches {counts}, {events.shape}")
+
+    print("cli wall times (s; serve: until /v1/health answers): " + ", ".join(
+        f"{name} {seconds:.3f}" for name, seconds in walls.items()) + f" [{card}]", flush=True)
+    print(f"phase 11 took {time.perf_counter() - phase_start:.1f} s (host clock); launches "
+          f"{totals}", flush=True)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -3289,6 +3648,7 @@ def main() -> int:
     wide_segment = wide_segment_timings(device, card, flagship, parent)
     wide_serve = wide_serve_path(device, card, flagship, wide_segment["first_ms"])
     http = http_path(device, card, flagship, wide_path["fused_packed"])
+    cli = cli_path(device, card)
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -3301,7 +3661,8 @@ def main() -> int:
             "source": source, "replaces": replaces, "launches": path["launches"][form],
             "max_abs_err": errors[form], "ms": times[form][0], "plain_ms": times[form][1],
             "bound_ms": ms, "bound_by": by, "library_ms": None,
-            "cluster": path["clusters"][form], "http_launches": http[form]})
+            "cluster": path["clusters"][form], "http_launches": http[form],
+            "cli_launches": cli[form]})
     flash_launches = {("mma", 16): training["launches"][("mma", 16)],
                       ("mma", 64): flagship_training["launches"],
                       ("scalar", 16): training["launches"][("scalar", 16)]}
@@ -3327,7 +3688,8 @@ def main() -> int:
                 "plain_ms": times[f"plain_{direction}"], "bound_ms": times[f"bound_{direction}"],
                 "bound_by": times[f"bound_by_{direction}"],
                 "library_ms": times[f"sdpa_{direction}"], "cluster": None,
-                "http_launches": http[f"flash_{direction} {variant[0]} {variant[1]}"]})
+                "http_launches": http[f"flash_{direction} {variant[0]} {variant[1]}"],
+                "cli_launches": cli[f"flash_{direction} {variant[0]} {variant[1]}"]})
     kernels.append({
         "name": "spec_decode (B=1)", "route": "cuda",
         "source": "composer_tpu_torch/csrc/spec_decode.cu",
@@ -3335,7 +3697,7 @@ def main() -> int:
         "max_abs_err": spec_error, "ms": spec["ms"], "plain_ms": spec["plain_ms"],
         "bound_ms": spec["bound_ms"], "bound_by": spec["bound_by"], "library_ms": None,
         "cluster": spec["cluster"], "parent_ms": spec["parent_ms"],
-        "http_launches": http["spec"]})
+        "http_launches": http["spec"], "cli_launches": cli["spec"]})
     kernels.append({
         "name": "decode_segment", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_segment.cu",
@@ -3343,14 +3705,15 @@ def main() -> int:
         "launches": serve["launches"], "max_abs_err": segment_error, "ms": segment["ms"],
         "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
         "bound_by": segment["bound_by"], "library_ms": None, "cluster": segment["cluster"],
-        "http_launches": http["segment"]})
+        "http_launches": http["segment"], "cli_launches": cli["segment"]})
     wide_bound_ms, wide_bound_by = wide[8]["bound bf16"]
     kernels.append({
         "name": "decode_wide", "route": "cuda", "source": "composer_tpu_torch/csrc/decode_wide.cu",
         "replaces": "composer_tpu/ops/decode_kernel_wide.py:153", "launches": wide_path["launches"],
         "max_abs_err": wide_error, "ms": wide[8]["bf16"], "plain_ms": wide[8]["plain_ms"],
         "bound_ms": wide_bound_ms, "bound_by": wide_bound_by, "library_ms": None,
-        "cluster": None, "parent_ms": wide[8]["parent_ms"], "http_launches": http["wide"]})
+        "cluster": None, "parent_ms": wide[8]["parent_ms"], "http_launches": http["wide"],
+        "cli_launches": cli["wide"]})
     kernels.append({
         "name": "decode_segment_wide", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_wide_segment.cu",
@@ -3359,7 +3722,7 @@ def main() -> int:
         "ms": wide_segment["ms"], "plain_ms": wide_segment["plain_ms"],
         "bound_ms": wide_segment["bound_ms"], "bound_by": wide_segment["bound_by"],
         "library_ms": None, "cluster": None, "parent_ms": wide_segment["parent_ms"],
-        "http_launches": http["segment_wide"]})
+        "http_launches": http["segment_wide"], "cli_launches": cli["segment_wide"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,601 @@
+"""The ``composer`` command-line interface of the PyTorch port.
+
+    python -m composer_tpu_torch.cli [--seed N] [--device cuda|cpu] <command> ...
+
+The port of ``composer_tpu/cli.py``, with its command names, arguments,
+options, defaults and exit codes: ``make-config``, ``preprocess``,
+``train``, ``evaluate``, ``generate`` and ``serve``. The data commands
+(``make-config``, ``preprocess``) write the JAX package's files byte for
+byte, and ``train``, ``evaluate``, ``generate`` and ``serve`` run on the
+device that ``--device`` names: the CUDA card by default, the CPU when asked
+(``--device cpu``). Nothing falls back to the CPU: ``--device cuda`` where
+PyTorch sees no card stops with an error.
+
+What differs from the JAX CLI:
+
+* checkpoints are the port's (``<logdir>/checkpoints/<step>/state.pt``);
+  ``scripts/convert_checkpoint.py`` converts one of either package into the
+  other's, so that ``--restoredir`` works across the two;
+* one device: ``--model-parallel`` above 1, and ``--data-parallel`` with more
+  than one visible card, stop with an error (ROADMAP.md, Queue 1 item 8);
+* ``--profile-dir`` writes a ``torch.profiler`` Chrome trace;
+* the ``dropout_rng_impl`` config key (a TPU dropout-generator choice) is
+  read and dropped: dropout draws from a ``torch.Generator`` seeded by
+  ``--seed``;
+* ``.tfrecord`` datasets, ``export-dataset``, ``summary``,
+  ``visualize-training``, ``profile``, ``synthesize`` and ``benchmark`` wait
+  for the second half of ROADMAP.md, Queue 1 item 5 (``benchmark`` also for
+  item 3), and ``import-checkpoint`` for item 9; MusicRNN for item 6.
+
+Deliberate fixes over the reference, as in the JAX CLI: ``--seed`` seeds the
+RNGs; ``--num-workers`` is honoured; ``generate`` decodes with a KV cache
+over the full context; library errors become exit codes here.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import logging
+import time
+from pathlib import Path
+from shutil import copy2
+
+import click
+import numpy as np
+
+import composer_tpu_torch.config as config_module
+from composer_tpu_torch import ModelSaveFrequencyMode, logging_utils
+from composer_tpu_torch.click_utils import EnumType
+from composer_tpu_torch.exceptions import ComposerError, DatasetError, InvalidParameterError
+from composer_tpu_torch.midi.events import NoteSequence, SustainPeriodEncodeMode
+from composer_tpu_torch.midi.vocab import vocabulary_from_config
+from composer_tpu_torch.models import (
+    ModelType,
+    create_model,
+    get_batch_size,
+    get_learning_rate,
+    get_window_size,
+)
+
+_GLOBAL_SEED = 0
+_DEVICE = "cuda"
+
+
+def get_seed() -> int:
+    return _GLOBAL_SEED
+
+
+def get_device():
+    """The ``torch.device`` of ``--device``. Without a CUDA device,
+    ``--device cuda`` stops here with a usage error (exit code 2)."""
+    import torch
+
+    if _DEVICE == "cuda" and not torch.cuda.is_available():
+        raise click.UsageError(
+            "--device cuda: PyTorch sees no CUDA device on this machine. Pass "
+            "--device cpu to run on the CPU."
+        )
+    return torch.device(_DEVICE)
+
+
+@click.group()
+@click.option("--verbosity", "-v", default="INFO", help="Either CRITICAL, ERROR, WARNING, INFO, or DEBUG.")
+@click.option("--seed", type=int, default=None, help="Sets the seed of the random engine.")
+@click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda",
+              help="The device that train, evaluate, generate and serve run on: 'cuda' "
+                   "(the card, the default) or 'cpu'.")
+def cli(verbosity, seed, device):
+    """A deep learning enabled music generator (PyTorch, on an NVIDIA card)."""
+    global _GLOBAL_SEED, _DEVICE
+    if seed is None:
+        seed = int(time.time() * 1000.0) & 0x7FFFFFFF
+    _GLOBAL_SEED = seed
+    _DEVICE = device
+    np.random.seed(seed & 0xFFFFFFFF)
+
+    logging_utils.init()
+    try:
+        logging_utils.set_verbosity(verbosity)
+    except ValueError as error:
+        raise click.BadParameter(str(error))
+
+
+def get_default_config():
+    return config_module.get_default_config_path()
+
+
+@cli.command()
+@click.argument("filepath")
+def make_config(filepath):
+    """Write a fresh config file seeded from the packaged defaults."""
+    copy2(get_default_config(), filepath)
+
+
+# ----------------------------------------------------------------- datasets
+
+def get_dataset(
+    model_type,
+    dataset_path,
+    config,
+    mode="",
+    max_files=None,
+    show_progress_bar=True,
+    shuffle_files=True,
+    shuffle_dataset=True,
+    num_workers=8,
+    use_generator=False,
+):
+    """Resolves a directory of .data files into a batch iterable (parity:
+    cli.py:185-276). ``use_generator`` selects the memory-bounded streaming
+    path (reference models/__init__.py:147-158): ids are packed once into a
+    disk cache and batches stream back per step. One process loads every
+    window (the JAX CLI shards them over its hosts)."""
+    from composer_tpu_torch.data import loader, preprocess
+
+    if mode not in ("train", "test", ""):
+        raise InvalidParameterError(
+            f"'{mode}' is an invalid dataset mode! Must be 'train', 'test', or none."
+        )
+
+    dataset_path = Path(dataset_path)
+    if dataset_path.is_dir():
+        search_path = dataset_path / mode if mode else dataset_path
+        if not search_path.exists():
+            raise DatasetError(
+                f"Could not get {mode} dataset: '{dataset_path}' has no {mode} folder."
+            )
+        files = preprocess.get_processed_files(search_path)
+        if shuffle_files:
+            np.random.shuffle(files)
+        if max_files is not None:
+            files = files[:max_files]
+        return loader.load_dataset(
+            files,
+            get_batch_size(model_type, config),
+            get_window_size(model_type, config),
+            shuffle=shuffle_dataset,
+            seed=get_seed(),
+            num_workers=num_workers,
+            show_progress_bar=show_progress_bar,
+            # Evaluation sets may be smaller than one training batch.
+            clamp_batch=(mode == "test"),
+            streaming=use_generator,
+        )
+
+    if dataset_path.suffix == ".tfrecord":
+        raise InvalidParameterError(
+            f"'{dataset_path}': reading .tfrecord datasets is not ported yet "
+            "(ROADMAP.md, Queue 1 item 5, second half: export-dataset and "
+            "data/tfrecord.py). Pass the directory of preprocessed .data files."
+        )
+    raise InvalidParameterError(
+        f"'{dataset_path}' is an invalid dataset path! Expected a directory "
+        "of processed files."
+    )
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("dataset-path")
+@click.argument("output-directory")
+@click.option("--num-workers", "-w", default=16, help="The number of worker processes to spawn. Defaults to 16.")
+@click.option("-c", "--config", "config_filepath", default=None,
+              help="The path to the model configuration file. If unspecified, uses the default config.")
+@click.option("--sustain-period-encode-mode", "-spe", default="extend",
+              type=EnumType(SustainPeriodEncodeMode, False),
+              help="The way in which sustain periods should be encoded. Defaults to EXTEND.")
+@click.option("--transform/--no-transform", default=True,
+              help="Whether to augment the dataset with pitch-shifted and time-stretched copies. Defaults to True.")
+@click.option("--transform-percent", default=1.0,
+              help="The percentage of the dataset to transform. Defaults to 100%% of the dataset.")
+@click.option("--split/--no-split", default=True,
+              help="Whether to split into train and test sets. Defaults to True.")
+@click.option("--test-percent", default=0.30,
+              help="The percentage of the dataset allocated to testing. Defaults to 30%%.")
+@click.option("--metadata/--no-metadata", "output_metadata", default=True,
+              help="Whether to output metadata. Defaults to True.")
+def preprocess(model_type, dataset_path, output_directory, num_workers, config_filepath,
+               sustain_period_encode_mode, transform, transform_percent, split,
+               test_percent, output_metadata):
+    """Convert a directory of raw MIDI files into model-ready .data files."""
+    from composer_tpu_torch.data import preprocess as preprocess_module
+
+    config = config_module.get(config_filepath or get_default_config())
+    output_directory = Path(output_directory)
+
+    if split:
+        preprocess_module.split_dataset(
+            config, dataset_path, output_directory, sustain_period_encode_mode,
+            test_percent, transform, transform_percent, num_workers, seed=get_seed(),
+        )
+    else:
+        preprocess_module.convert_all(
+            config, dataset_path, output_directory, sustain_period_encode_mode,
+            transform, transform_percent, num_workers, seed=get_seed(),
+        )
+
+    if output_metadata:
+        with open(output_directory / "metadata.json", "w+") as metadata_file:
+            json.dump(
+                {
+                    "local_time": str(datetime.datetime.now()),
+                    "utc_time": str(datetime.datetime.now(datetime.timezone.utc)),
+                    "model_type": str(model_type),
+                    "raw_dataset_path": str(Path(dataset_path).absolute()),
+                    "output_directory": str(output_directory.absolute()),
+                    "sustain_period_encode_mode": str(sustain_period_encode_mode),
+                    "transform": transform,
+                    "transform_percent": transform_percent,
+                    "split": split,
+                    "test_percent": test_percent,
+                    "seed": get_seed(),
+                },
+                metadata_file,
+                indent=True,
+            )
+        copy2(config.filepath or get_default_config(), output_directory / "config.yml")
+
+
+def get_config_from_restoredir(restoredir):
+    config_filepath = Path(restoredir) / "config.yml"
+    if not config_filepath.exists():
+        logging.error(
+            "Failed to restore model from '%s'! Could not find 'config.yml'.", restoredir
+        )
+        raise click.exceptions.Exit(1)
+    return config_module.get(config_filepath)
+
+
+_CONFIG_SNAPSHOT_BANNER = """\
+#########################################################
+# Datetime: {datetime}.
+#########################################################
+# This is an autogenerated backup of the configuration file
+# used when invoking the train command.
+#
+# DO NOT MODIFY THIS FILE!
+# Doing so may cause errors upon resuming training.
+#########################################################
+{config_source}
+"""
+
+
+def _make_trainer(model_type, config):
+    from composer_tpu_torch.train.trainer import Trainer
+
+    device = get_device()
+    model, _ = create_model(model_type, config, device=device)
+    train_section = (
+        config.music_rnn if model_type == ModelType.MUSIC_RNN else config.transformer
+    ).train
+    # The JAX package's choice of TPU dropout generator has no counterpart:
+    # dropout draws from a torch.Generator seeded by --seed.
+    if train_section.get("dropout_rng_impl", None) not in (None, "auto", "default"):
+        logging.info("Ignoring dropout_rng_impl=%s, a TPU setting.",
+                     train_section["dropout_rng_impl"])
+    return Trainer(
+        model, model_type, get_learning_rate(model_type, config),
+        seed=get_seed(),
+        # Optional additive knobs (0 = the reference's bare Adam).
+        warmup_steps=int(train_section.get("warmup_steps", 0)),
+        gradient_clip_norm=float(train_section.get("gradient_clip_norm", 0.0)),
+        device=device,
+    )
+
+
+def _refuse_parallelism(model_parallel: int, data_parallel: bool) -> None:
+    """One device: tensor parallelism, and data parallelism over several
+    cards, are not ported (ROADMAP.md, Queue 1 item 8)."""
+    import torch
+
+    if model_parallel > 1:
+        raise click.BadParameter(
+            f"--model-parallel {model_parallel}: tensor parallelism is not ported yet "
+            "(ROADMAP.md, Queue 1 item 8).", param_hint="--model-parallel")
+    if data_parallel and _DEVICE == "cuda" and torch.cuda.device_count() > 1:
+        raise click.UsageError(
+            f"{torch.cuda.device_count()} CUDA devices are visible, and data parallelism "
+            "over several devices is not ported yet (ROADMAP.md, Queue 1 item 8). Pass "
+            "--no-data-parallel to train on one device."
+        )
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("dataset-path")
+@click.option("--logdir", default="./output/logdir/", help="The root log directory. Defaults to './output/logdir'.")
+@click.option("--restoredir", default=None, type=str, help="The directory of the model to continue training.")
+@click.option("-c", "--config", "config_filepath", default=None,
+              help="The path to the model configuration file. Ignored when --restoredir is given.")
+@click.option("-e", "--epochs", default=10, help="The number of epochs to train for. Defaults to 10.")
+@click.option("--use-generator/--no-use-generator", "use_generator", default=False,
+              help="Stream batches from a disk-backed packed cache "
+                   "(memory-bounded; same batches as the in-memory path).")
+@click.option("--max-files", default=None, type=int,
+              help="The maximum number of files to load. Defaults to all files.")
+@click.option("--save-freq-mode", "save_frequency_mode", type=EnumType(ModelSaveFrequencyMode, False),
+              default="global_step", help="The units of the save frequency. Defaults to GLOBAL_STEP.")
+@click.option("--save-freq", "save_frequency", type=int, default=500,
+              help="How often to save the model. Defaults to every 500 global steps.")
+@click.option("--max-checkpoints", type=int, default=3,
+              help="The maximum number of checkpoints to keep. Defaults to 3.")
+@click.option("--show-progress-bar/--no-show-progress-bar", default=True,
+              help="Whether to show an epoch progress bar. Defaults to True.")
+@click.option("--data-parallel/--no-data-parallel", default=True,
+              help="Shard batches over all visible devices (data parallelism). "
+                   "The port trains on one device: with more than one visible "
+                   "card, pass --no-data-parallel.")
+@click.option("--model-parallel", type=int, default=1,
+              help="Tensor-parallel degree. The port trains on one device: "
+                   "only 1 (the default) is accepted.")
+@click.option("--profile-dir", default=None, type=str,
+              help="Capture a torch.profiler trace (a Chrome trace, trace.json) "
+                   "of a few steps into this directory.")
+def train(model_type, dataset_path, logdir, restoredir, config_filepath, epochs,
+          use_generator, max_files, save_frequency_mode, save_frequency,
+          max_checkpoints, show_progress_bar, data_parallel, model_parallel,
+          profile_dir):
+    """Run the training loop for the chosen model on a preprocessed dataset."""
+    _refuse_parallelism(model_parallel, data_parallel)
+    get_device()  # fail before a log directory is made
+
+    if restoredir is not None:
+        config = get_config_from_restoredir(restoredir)
+        model_logdir = Path(restoredir)
+    else:
+        stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        model_logdir = Path(logdir) / f"{model_type.name.lower()}-{stamp}"
+        model_logdir.mkdir(parents=True, exist_ok=True)
+        config = config_module.get(config_filepath or get_default_config())
+        source = Path(config.filepath or get_default_config()).read_text()
+        (model_logdir / "config.yml").write_text(
+            _CONFIG_SNAPSHOT_BANNER.format(
+                datetime=str(datetime.datetime.now()), config_source=source
+            )
+        )
+
+    trainer = _make_trainer(model_type, config)
+    batch = get_batch_size(model_type, config)
+    window = get_window_size(model_type, config)
+
+    if restoredir is not None:
+        state = trainer.restore(model_logdir, batch, window)
+    else:
+        state = trainer.init_state(batch, window)
+
+    dataset = get_dataset(
+        model_type, dataset_path, config, "train",
+        max_files=max_files, use_generator=use_generator,
+    )
+    trainer.train(
+        dataset, state, model_logdir, epochs=epochs,
+        save_frequency_mode=save_frequency_mode, save_frequency=save_frequency,
+        max_checkpoints=max_checkpoints, show_progress_bar=show_progress_bar,
+        profile_dir=profile_dir,
+    )
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("dataset-path")
+@click.argument("restoredir")
+@click.option("--use-generator/--no-use-generator", "use_generator", default=False,
+              help="Stream batches from a disk-backed packed cache "
+                   "(memory-bounded; same batches as the in-memory path).")
+@click.option("--max-files", default=None, type=int,
+              help="The maximum number of files to load. Defaults to all files.")
+def evaluate(model_type, dataset_path, restoredir, use_generator, max_files):
+    """Score a restored checkpoint on a dataset (mean NLL loss and accuracy)."""
+    config = get_config_from_restoredir(restoredir)
+    trainer = _make_trainer(model_type, config)
+    state = trainer.restore(
+        restoredir, get_batch_size(model_type, config), get_window_size(model_type, config)
+    )
+    dataset = get_dataset(
+        model_type, dataset_path, config, "test",
+        max_files=max_files, shuffle_dataset=False, use_generator=use_generator,
+    )
+    metrics = trainer.evaluate(dataset, state)
+    logging.info(
+        "- Finished evaluating model. Loss: %.4f, Accuracy: %.4f, Perplexity: %.2f",
+        metrics["loss"], metrics["accuracy"], metrics["perplexity"],
+    )
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("restoredir")
+@click.argument("output-filepath")
+@click.option("--prompt", "-p", default=None,
+              help="The path of the MIDI file to prompt the network with. "
+                   "Defaults to None, meaning a random prompt will be created.")
+@click.option("--prompt-length", default=10, help="Number of events to take from the start of the prompt. Defaults to 10.")
+@click.option("--length", "-l", "generate_length", default=1024,
+              help="The length of the generated event sequence. Defaults to 1024.")
+@click.option("--temperature", default=1.0,
+              help="Dictates how random the result is. Lower is more predictable. Defaults to 1.0.")
+@click.option("--top-k", default=0,
+              help="Sample only from the k most likely events (0 disables; addition over the reference).")
+@click.option("--top-p", default=0.0,
+              help="Nucleus sampling: smallest probability mass p to sample from (0 disables; addition over the reference).")
+@click.option("--engine", default="auto",
+              type=click.Choice(["auto", "megakernel", "wide", "xla", "spec"]),
+              help="Decode engine. 'auto' picks the hand-written kernels on the "
+                   "card: speculative block decoding (spec_decode) for greedy "
+                   "single-sequence runs, which gives the sequential kernel's "
+                   "ids; the sequential kernel (decode_generate) otherwise; "
+                   "decode_wide for models whose weights outgrow the card's L2. "
+                   "'spec' forces speculation for sampled runs too (wins on "
+                   "repetitive streams); 'xla' is the unfused path. On "
+                   "--device cpu each engine runs its plain PyTorch version.")
+def generate(model_type, restoredir, output_filepath, prompt, prompt_length,
+             generate_length, temperature, top_k, top_p, engine):
+    """Generate a MIDI file (one launch of a fused decode kernel on the card)."""
+    from composer_tpu_torch.midi.events import EventSequence
+    from composer_tpu_torch.train.generate import generate_ids
+
+    config = get_config_from_restoredir(restoredir)
+    trainer = _make_trainer(model_type, config)
+    trainer.restore(
+        restoredir, get_batch_size(model_type, config), get_window_size(model_type, config)
+    )
+    vocab = vocabulary_from_config(config)
+
+    if prompt is not None:
+        prompt_sequence = NoteSequence.from_midi(prompt).trim_start()
+        event_sequence = prompt_sequence.to_event_sequence(
+            config.dataset.time_step_increment,
+            config.dataset.max_time_steps,
+            config.dataset.velocity_bins,
+        )
+        event_sequence.events = event_sequence.events[:prompt_length]
+        prompt_ids = event_sequence.to_ids().astype(np.int32)
+        if prompt_ids.size == 0:
+            raise InvalidParameterError(
+                f"Prompt MIDI '{prompt}' contains no events after encoding; "
+                "use a file with at least one note (or omit --prompt for a "
+                "random seed prompt)."
+            )
+    else:
+        # New capability (the reference raised NotImplementedError,
+        # cli.py:642-643): seed with a random NOTE_ON at moderate velocity,
+        # drawn as the JAX CLI draws it, so both CLIs seed the same prompt.
+        rng = np.random.default_rng(get_seed())
+        prompt_ids = np.array(
+            [vocab.velocity_offset + vocab.velocity_bins // 2,
+             int(rng.integers(48, 72))],
+            dtype=np.int32,
+        )
+
+    ids = generate_ids(
+        trainer.model, model_type, None, prompt_ids,
+        length=generate_length, temperature=temperature, seed=get_seed(),
+        top_k=top_k, top_p=top_p, engine=engine,
+    )
+
+    event_sequence = EventSequence.from_ids(
+        ids,
+        config.dataset.time_step_increment,
+        config.dataset.max_time_steps,
+        config.dataset.velocity_bins,
+    )
+    output_filepath = Path(output_filepath)
+    output_filepath.parent.mkdir(parents=True, exist_ok=True)
+    event_sequence.to_note_sequence().to_midi(str(output_filepath))
+    logging.info("Wrote %d events to '%s'.", len(ids), output_filepath)
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("restoredir")
+@click.option("--host", default="127.0.0.1", help="Bind address. Defaults to 127.0.0.1.")
+@click.option("--port", default=8000, help="Bind port. Defaults to 8000.")
+@click.option("--max-batch-size", default=8,
+              help="Most concurrent requests coalesced into one batched decode. Defaults to 8.")
+@click.option("--max-wait-ms", default=20.0,
+              help="How long the batcher waits to fill a batch. Defaults to 20 ms.")
+@click.option("--default-length", default=1024,
+              help="Generation length when a request omits 'length'. Defaults to 1024.")
+@click.option("--continuous/--no-continuous", default=False,
+              help="Continuous batching (transformers): requests join a "
+                   "running batch at segment boundaries instead of waiting "
+                   "for the current batch to finish.")
+@click.option("--seg-steps", default=64,
+              help="Continuous mode: decode steps per scheduling segment "
+                   "(admission/eviction granularity). Defaults to 64.")
+@click.option("--serve-cache-len", default=2048,
+              help="Continuous mode: per-slot KV capacity; bounds "
+                   "prompt + length per request. Defaults to 2048.")
+@click.option("--max-queue-depth", default=0,
+              help="Most requests allowed to wait in the serving queue; "
+                   "submits beyond it get HTTP 429. 0 (default) = unbounded.")
+@click.option("--default-deadline-ms", default=0.0,
+              help="Deadline applied to requests that send no 'deadline_ms'; "
+                   "expiry returns HTTP 503. 0 (default) = none.")
+@click.option("--prefix-cache-mb", default=32.0,
+              help="Continuous mode: device-memory budget for the cross-request "
+                   "prompt-prefix KV cache (repeated prompts admit with one "
+                   "copy instead of a prefix forward). 0 disables. "
+                   "Defaults to 32 MiB.")
+@click.option("--continuous-engine", default="auto",
+              type=click.Choice(["auto", "resident", "wide"]),
+              help="Continuous mode kernel: 'resident' (decode_segment) keeps "
+                   "each sequence's step on a thread-block cluster; 'wide' "
+                   "(decode_segment_wide) streams the weights through every "
+                   "SM (models whose weights outgrow the card's L2, e.g. "
+                   "embed 1024). 'auto' (default) picks by model size.")
+@click.option("--model-parallel", type=int, default=1,
+              help="Tensor-parallel degree. The port serves from one device: "
+                   "only 1 (the default) is accepted.")
+def serve(model_type, restoredir, host, port, max_batch_size, max_wait_ms,
+          default_length, continuous, seg_steps, serve_cache_len,
+          max_queue_depth, default_deadline_ms, prefix_cache_mb,
+          continuous_engine, model_parallel):
+    """Serve generation over HTTP (POST /v1/generate, GET /v1/health).
+
+    Restores the model once, keeps it resident on the device, and coalesces
+    concurrent requests into batched decodes: one launch of the fused
+    kernel per batch. Request body: {"events": [...]} or {"midi_base64":
+    "..."} plus optional length/temperature/top_k/top_p/prompt_length/
+    return_midi. With --continuous, a slot scheduler over the segmented
+    decode kernel admits/evicts requests at segment boundaries. On shutdown (Ctrl-C) it logs each kernel's launches.
+    """
+    from composer_tpu_torch.ops import launch_counts
+    from composer_tpu_torch.serving import (
+        ContinuousGenerationService,
+        GenerationService,
+        build_server,
+    )
+
+    _refuse_parallelism(model_parallel, data_parallel=False)
+    config = get_config_from_restoredir(restoredir)
+    trainer = _make_trainer(model_type, config)
+    trainer.restore(
+        restoredir, get_batch_size(model_type, config), get_window_size(model_type, config)
+    )
+    vocab = vocabulary_from_config(config)
+    if continuous:
+        service = ContinuousGenerationService(
+            trainer.model, model_type, None, vocab.size,
+            slots=max_batch_size, seg_steps=seg_steps,
+            cache_len=serve_cache_len, seed=get_seed(),
+            max_queue_depth=max_queue_depth,
+            default_deadline_ms=default_deadline_ms,
+            prefix_cache_mb=prefix_cache_mb,
+            engine=continuous_engine, device=trainer.device,
+        )
+    else:
+        service = GenerationService(
+            trainer.model, model_type, None, vocab.size,
+            max_batch_size=max_batch_size, max_wait_ms=max_wait_ms,
+            seed=get_seed(), max_queue_depth=max_queue_depth,
+            default_deadline_ms=default_deadline_ms, device=trainer.device,
+        )
+    server = build_server(
+        service, config, host=host, port=port, default_length=default_length,
+    )
+    logging.info(
+        "Serving %s on http://%s:%d (POST /v1/generate, GET /v1/health).",
+        model_type.value, host, server.server_port,
+    )
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        logging.info("Shutting down.")
+    finally:
+        server.server_close()
+        service.close()
+        logging.info("Kernel launches: %s", json.dumps(launch_counts()))
+
+
+def main():
+    try:
+        cli()
+    except (ComposerError, NotImplementedError) as error:
+        logging.error(str(error))
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

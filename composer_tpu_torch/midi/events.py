@@ -1,9 +1,8 @@
 """MIDI-like note sequences and their event-token representation.
 
 The port's copy of ``composer_tpu/midi/events.py`` (the port imports nothing
-of the JAX package). It leaves out what needs the ``.data`` serialization
-(``to_integer_encoding``, ``to_one_hot_encoding``, ``from_file``);
-``tests/test_torch_codec.py`` holds the copy to the original.
+of the JAX package); ``tests/test_torch_codec.py`` holds the copy to the
+original.
 
 Behavioural parity surface: composer/dataset/sequence.py (reference). The
 observable semantics — event ordering at equal timestamps, the time-shift
@@ -412,6 +411,23 @@ class EventSequence:
         vocab = get_vocabulary(time_step_increment, max_time_steps, velocity_bins)
         types, values = vocab.decode_ids(np.asarray(ids))
         return cls.from_arrays(types, values, time_step_increment, max_time_steps, velocity_bins)
+
+    # ----------------------------------------------------------- serialization
+    def to_integer_encoding(self):
+        from composer_tpu_torch.midi.serialization import IntegerEncodedEventSequence
+
+        return IntegerEncodedEventSequence.encode(self)
+
+    def to_one_hot_encoding(self):
+        from composer_tpu_torch.midi.serialization import OneHotEncodedEventSequence
+
+        return OneHotEncodedEventSequence.encode(self)
+
+    @staticmethod
+    def from_file(filepath, decode: bool = True):
+        from composer_tpu_torch.midi import serialization
+
+        return serialization.load(filepath, decode=decode)
 
     def __repr__(self):
         return "\n".join(str(event) for event in self.events)

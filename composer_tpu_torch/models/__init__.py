@@ -1,7 +1,8 @@
 """Model registry and factory: port of ``composer_tpu/models/__init__.py``.
 
-``ModelType`` and ``get_event_vocab_size`` are the port's own copies
-(``composer_tpu/models/__init__.py:18-33``).
+``ModelType``, ``EventEncodingType``, ``get_event_vocab_size``,
+``get_batch_size``, ``get_learning_rate`` and ``get_window_size`` are the
+port's own copies (``composer_tpu/models/__init__.py:18-33``, ``:131-143``).
 """
 
 from __future__ import annotations
@@ -9,12 +10,11 @@ from __future__ import annotations
 import logging
 from enum import Enum, unique
 
-import torch
-
 from composer_tpu_torch.exceptions import InvalidParameterError
 from composer_tpu_torch.midi.vocab import vocabulary_from_config
 
-__all__ = ["ModelType", "create_model", "get_event_vocab_size"]
+__all__ = ["EventEncodingType", "ModelType", "create_model", "get_batch_size",
+           "get_event_vocab_size", "get_learning_rate", "get_window_size"]
 
 
 @unique
@@ -23,13 +23,23 @@ class ModelType(Enum):
     TRANSFORMER = "transformer"
 
 
+@unique
+class EventEncodingType(Enum):
+    """How events are fed to the network (models/__init__.py:95-107)."""
+
+    INTEGER = 0
+    ONE_HOT = 1
+
+
 def get_event_vocab_size(config) -> int:
     return vocabulary_from_config(config).size
 
 
-def _compute_dtype(model_section, device) -> torch.dtype:
+def _compute_dtype(model_section, device):
     """bfloat16 on a CUDA device when the config asks for mixed precision,
     float32 elsewhere (CPU runs stay float32, as in the JAX package)."""
+    import torch
+
     if torch.device(device).type != "cuda":
         return torch.float32
     if bool(model_section.get("mixed_precision", False)):
@@ -80,3 +90,18 @@ def create_model(model_type: ModelType, config, device="cuda", **overrides):
         )
 
     raise InvalidParameterError(f"Unrecognized model type: '{model_type}'.")
+
+
+def get_batch_size(model_type: ModelType, config) -> int:
+    section = config.music_rnn if model_type == ModelType.MUSIC_RNN else config.transformer
+    return int(section.train.batch_size)
+
+
+def get_learning_rate(model_type: ModelType, config) -> float:
+    section = config.music_rnn if model_type == ModelType.MUSIC_RNN else config.transformer
+    return float(section.train.learning_rate)
+
+
+def get_window_size(model_type: ModelType, config) -> int:
+    section = config.music_rnn if model_type == ModelType.MUSIC_RNN else config.transformer
+    return int(section.model.window_size)

@@ -5,6 +5,13 @@ so matmul kernels are transposed on the way through. LayerNorm ``scale`` is
 the torch ``weight``. ``rel_embedding`` keeps its ``(H, W, D)`` layout. The
 mapping is exact: ``params_to_flax(params_from_flax(p, c), c)`` returns ``p``
 bit for bit.
+
+The optimizer state goes through the same mapping: optax's Adam moments
+``mu`` and ``nu`` are trees shaped like the params, and the port's
+``Adam.state_dict()`` holds them as lists in the model's parameter order
+(``adam_state_from_optax``, ``adam_state_to_optax``). numpy only: the
+checkpoint bridge, ``scripts/convert_checkpoint.py``, reads and writes the
+Orbax side.
 """
 
 from __future__ import annotations
@@ -70,3 +77,37 @@ def params_to_flax(state_dict, config) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(array.T if transposed else array)
     return tree
+
+
+def find_adam_state(opt_state):
+    """The ``ScaleByAdamState`` node (a dict with ``count``, ``mu`` and
+    ``nu``) of an optax state in state-dict form: ``optax.adam``'s own
+    state, or the one inside a chain (clipping first, a schedule after)."""
+    if isinstance(opt_state, dict):
+        if {"count", "mu", "nu"} <= set(opt_state):
+            return opt_state
+        for key in sorted(opt_state):
+            found = find_adam_state(opt_state[key])
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, config, names) -> dict:
+    """optax Adam state (state-dict form) -> the port's ``Adam.state_dict()``;
+    ``names`` is the model's parameter order (``named_parameters``)."""
+    adam = find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam moments (count, mu, nu)")
+    mu = params_from_flax(adam["mu"], config)
+    nu = params_from_flax(adam["nu"], config)
+    return {"count": int(np.asarray(adam["count"])),
+            "mu": [mu[name] for name in names], "nu": [nu[name] for name in names]}
+
+
+def adam_state_to_optax(state, config, names) -> dict:
+    """The port's ``Adam.state_dict()`` -> the ``ScaleByAdamState`` node
+    (``count`` as int32, ``mu`` and ``nu`` as Flax trees of numpy arrays)."""
+    return {"count": np.asarray(int(state["count"]), np.int32),
+            "mu": params_to_flax(dict(zip(names, state["mu"])), config),
+            "nu": params_to_flax(dict(zip(names, state["nu"])), config)}

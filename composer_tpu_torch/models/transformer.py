@@ -25,6 +25,11 @@ rate), and on the attention weights. Its random numbers come from the
 ``torch.Generator`` passed to ``forward``; the flash path draws one int32
 seed per layer call from it and drops inside the kernel.
 
+``remat`` (Flax's ``nn.remat`` around each block) recomputes each block's
+activations in the backward pass (``torch.utils.checkpoint``) instead of
+keeping them; the recompute draws the forward's dropout bits
+(``_checkpointed_block``), so loss and gradients do not change.
+
 The KV cache is a dict ``{"index": int, "layers": [{"k", "v"}]}`` of
 ``[B, H, S, D]`` buffers. Unlike the functional JAX module, ``forward``
 writes the new keys and values into those buffers in place (no copy of the
@@ -39,6 +44,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from composer_tpu_torch.ops import attention as attention_ops
@@ -65,9 +71,10 @@ class TransformerConfig:
     # Hopper kernels on CUDA); see ops/attention.py for the rule.
     use_pallas_attention: bool = False
     # Accepted for config compatibility and ignored: the chunked and band
-    # branches compute the same function, remat waits (ROADMAP.md).
+    # branches compute the same function (ROADMAP.md).
     attention_chunk_size: int = 0
     band_block_size: int = 128
+    # Recompute each block's activations in the backward pass (training only).
     remat: bool = False
     flash_mesh: Any = None
 
@@ -209,6 +216,34 @@ class DecoderBlock(nn.Module):
         return x + self.mlp(m, deterministic, generator)
 
 
+def _checkpointed_block(block: DecoderBlock, x, deterministic: bool, generator):
+    """``block`` under ``torch.utils.checkpoint`` (the non-reentrant form).
+
+    The backward pass runs the block a second time, and that recompute must
+    draw the forward's dropout bits. ``checkpoint`` restores only the
+    default CPU and CUDA generators, never an explicit ``generator``, so the
+    generator's state at the block's start is kept, set again for the
+    recompute, and afterwards put back where the whole forward left it."""
+    if generator is None or deterministic:
+        return torch.utils.checkpoint.checkpoint(
+            block, x, None, None, deterministic, generator, use_reentrant=False)
+    start = generator.get_state()
+    forward_done = []
+
+    def run(h):
+        if not forward_done:
+            forward_done.append(True)
+            return block(h, None, None, deterministic, generator)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(h, None, None, deterministic, generator)
+        finally:
+            generator.set_state(after)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+
+
 class Transformer(nn.Module):
     """The decoder-only LM. ``forward`` returns ``(logits, new_cache)``."""
 
@@ -271,7 +306,11 @@ class Transformer(nn.Module):
         h = self.wte.to(dtype)[tokens] + self.wpe.to(dtype)[positions][None]
         h = _dropout(h, config.residual_dropout_rate, deterministic, generator)
 
+        remat = config.remat and cache is None and torch.is_grad_enabled()
         for layer, block in enumerate(self.blocks):
+            if remat:
+                h = _checkpointed_block(block, h, deterministic, generator)
+                continue
             layer_cache = cache["layers"][layer] if cache is not None else None
             h = block(h, layer_cache, cache_index if cache is not None else None,
                       deterministic, generator)

@@ -13,12 +13,17 @@ update (lr 0 at the first update), and ``clip_by_global_norm``, which
 rescales by ``max_norm / norm`` only when ``norm >= max_norm`` (unlike
 ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm).
 
-Not ported: MusicRNN (ROADMAP.md, Queue 1 item 6), a device mesh (item 8),
-the profiler hook and the TPU dropout-generator choice.
+``Trainer.train(profile_dir=...)`` writes a ``torch.profiler`` trace (a
+Chrome trace, with the card's kernels when the trainer runs on CUDA) of the
+call's steps [2, 2 + profile_steps).
+
+Not ported: MusicRNN (ROADMAP.md, Queue 1 item 6), a device mesh (item 8)
+and the TPU dropout-generator choice (``dropout_rng_impl``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -216,9 +221,19 @@ class Trainer:
     # ------------------------------------------------------------------- loop
     def train(self, dataset, state: TrainState, logdir, epochs: Optional[int] = 10,
               save_frequency_mode=ModelSaveFrequencyMode.EPOCH, save_frequency: int = 1,
-              max_checkpoints: int = 1, show_progress_bar: bool = True) -> TrainState:
+              max_checkpoints: int = 1, show_progress_bar: bool = True, profile_dir=None,
+              profile_steps: int = 5) -> TrainState:
         """Runs the epoch/batch loop with checkpointing and scalars under
-        ``<logdir>/train``; always leaves a final checkpoint."""
+        ``<logdir>/train``; always leaves a final checkpoint.
+
+        ``profile_dir`` captures a ``torch.profiler`` trace of this call's
+        steps [2, 2 + profile_steps) into ``<profile_dir>/trace.json`` (a
+        Chrome trace; CUDA activity included on the card). Step 1 is left
+        out, as in the JAX package, so that warm-up does not dominate the
+        trace; each step is a ``train_step <global step>`` range in it. The
+        JAX package counts the global step, so a resumed run never
+        profiles there; here a resumed run profiles its own second step on.
+        """
         logdir = Path(logdir)
         save_frequency_mode = ModelSaveFrequencyMode(save_frequency_mode)
         checkpoints = CheckpointManager(logdir, max_to_keep=max_checkpoints)
@@ -232,6 +247,8 @@ class Trainer:
         # wait for the device after every step.
         metrics_flush_steps = 16
         global_step = state.step - 1
+        run_steps = 0
+        profiler = None
 
         try:
             while epochs is None or state.epoch <= epochs:
@@ -260,8 +277,17 @@ class Trainer:
 
                 try:
                     for x, y in dataset:
-                        metrics = self.train_step(state, x, y, generator)
+                        run_steps += 1
+                        if profile_dir is not None and profile_steps > 0 and run_steps == 2:
+                            profiler = self._start_profile()
+                        span = (torch.profiler.record_function(f"train_step {global_step + 1}")
+                                if profiler is not None else contextlib.nullcontext())
+                        with span:
+                            metrics = self.train_step(state, x, y, generator)
                         global_step += 1
+                        if profiler is not None and run_steps == 1 + profile_steps:
+                            self._stop_profile(profiler, profile_dir)
+                            profiler, profile_dir = None, None
                         pending.append((global_step, metrics))
                         drain()
                         progress.update(1)
@@ -291,9 +317,29 @@ class Trainer:
             if final_step > 0 and checkpoints.latest_step() != final_step:
                 checkpoints.save(final_step, state.state_dict())
         finally:
+            if profiler is not None:  # the run ended inside the profiled steps
+                self._stop_profile(profiler, profile_dir)
             checkpoints.wait()
             writer.close()
         return state
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+            torch.cuda.synchronize(self.device)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler, profile_dir) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        profile_dir = Path(profile_dir)
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(profile_dir / "trace.json"))
+        logging.info("Wrote a profiler trace to '%s'.", profile_dir / "trace.json")
 
     def evaluate(self, dataset, state: TrainState, scan_chunk: int = 64) -> dict:
         """Mean loss/accuracy/perplexity over a dataset. Batch metrics stay

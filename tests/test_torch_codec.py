@@ -176,3 +176,117 @@ def test_parse_midi_raises_like_the_original(kind):
         assert ours[0] == "InvalidParameterError"
     elif kind in ("short-header", "truncated-track"):
         assert ours[0] != "ok"  # struct.error, IndexError
+
+
+# ------------------------------------------------- the CLI slice's copies
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", ["none", "extend", "events"])
+def test_fast_encode_matches_the_original(seed, mode):
+    from composer_tpu.midi import fast_encode as jax_fast_encode
+    from composer_tpu_torch.midi import fast_encode
+
+    notes, sustains = _notes(events, seed), _sustains(events, seed)
+    arrays = ([n.start for n in notes], [n.end for n in notes], [n.pitch for n in notes],
+              [n.velocity for n in notes], [p.start for p in sustains],
+              [p.end for p in sustains])
+    ours = fast_encode.encode_events(
+        *arrays, sustain_period_encode_mode=events.SustainPeriodEncodeMode(mode))
+    theirs = jax_fast_encode.encode_events(
+        *arrays, sustain_period_encode_mode=jax_events.SustainPeriodEncodeMode(mode))
+    for got, expected in zip(ours, theirs):
+        np.testing.assert_array_equal(got, expected)
+        assert got.dtype == expected.dtype
+
+
+def test_serialization_matches_the_original(tmp_path):
+    """``.data`` bytes (integer and one-hot encodings, ``write_event_pairs``)
+    and what ``load`` and ``event_ids_from_file`` read back."""
+    from composer_tpu.midi import serialization as jax_serialization
+    from composer_tpu_torch.midi import serialization
+
+    sequence = events.NoteSequence(_notes(events, 5), _sustains(events, 5)).to_event_sequence(
+        10, 100, 32)
+    jax_sequence = jax_events.NoteSequence(
+        _notes(jax_events, 5), _sustains(jax_events, 5)).to_event_sequence(10, 100, 32)
+    for ours, theirs in ((sequence.to_integer_encoding(), jax_sequence.to_integer_encoding()),
+                         (sequence.to_one_hot_encoding(), jax_sequence.to_one_hot_encoding())):
+        assert ours.to_bytes() == theirs.to_bytes()
+    types, values = sequence.to_arrays()
+    serialization.write_event_pairs(tmp_path / "ours.data", types, values, 10, 100, 32)
+    jax_serialization.write_event_pairs(tmp_path / "theirs.data", types, values, 10, 100, 32)
+    assert (tmp_path / "ours.data").read_bytes() == (tmp_path / "theirs.data").read_bytes()
+    ids = serialization.IntegerEncodedEventSequence.event_ids_from_file(
+        tmp_path / "ours.data", as_numpy_array=True)[0]
+    np.testing.assert_array_equal(ids, jax_serialization.IntegerEncodedEventSequence
+                                  .event_ids_from_file(tmp_path / "ours.data",
+                                                       as_numpy_array=True)[0])
+    np.testing.assert_array_equal(ids, sequence.to_ids())
+    loaded = events.EventSequence.from_file(tmp_path / "ours.data")
+    np.testing.assert_array_equal(loaded.to_ids(), sequence.to_ids())
+    sequence.to_one_hot_encoding().to_file(tmp_path / "one_hot.data")
+    np.testing.assert_array_equal(
+        serialization.load(tmp_path / "one_hot.data").to_ids(),
+        jax_serialization.load(tmp_path / "one_hot.data").to_ids())
+
+
+def test_logging_colours_match_the_original():
+    """The port writes colorama's ANSI codes itself: each level formats to
+    the original's string."""
+    import logging
+
+    from composer_tpu import logging_utils as jax_logging_utils
+    from composer_tpu_torch import logging_utils
+
+    ours = logging_utils._ColourFormatter(logging_utils._DEFAULT_FORMAT)
+    theirs = jax_logging_utils._ColourFormatter(jax_logging_utils._DEFAULT_FORMAT)
+    for level in (logging.DEBUG, logging.INFO, logging.WARNING, logging.ERROR, logging.FATAL):
+        record = logging.LogRecord("x", level, __file__, 1, "message %d", (7,), None)
+        assert ours.format(record) == theirs.format(record)
+    with pytest.raises(ValueError, match="Must be"):
+        logging_utils.set_verbosity("loud")
+
+
+def test_click_enum_type_matches_the_original():
+    from composer_tpu import click_utils as jax_click_utils
+    from composer_tpu.midi.events import SustainPeriodEncodeMode as JaxMode
+    from composer_tpu_torch import click_utils
+
+    ours = click_utils.EnumType(events.SustainPeriodEncodeMode, False)
+    theirs = jax_click_utils.EnumType(JaxMode, False)
+    assert ours.choices == theirs.choices
+    assert ours.get_metavar(None) == theirs.get_metavar(None)
+    assert ours.convert("EXTEND", None, None).value == theirs.convert("EXTEND", None, None).value
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_parallel_map_matches_the_original(workers):
+    """Results in input order, failures collected, with one worker and with
+    a pool of spawned processes (the port's start method)."""
+    import math
+
+    from composer_tpu import utils as jax_utils
+    from composer_tpu_torch import utils
+
+    items = [4.0, -1.0, 9.0, 16.0, -4.0, 25.0, 36.0]
+    ours = utils.parallel_map(items, math.sqrt, num_workers=workers, show_progress_bar=False,
+                              return_exceptions=True)
+    theirs = jax_utils.parallel_map(items, math.sqrt, num_workers=workers,
+                                    show_progress_bar=False, return_exceptions=True,
+                                    multithread=True)
+    assert [repr(r) for r in ours] == [repr(r) for r in theirs]
+    with pytest.raises(ValueError):
+        utils.parallel_map(items, math.sqrt, num_workers=workers, show_progress_bar=False)
+
+
+def test_model_config_helpers_match_the_original():
+    from composer_tpu import models as jax_models
+    from composer_tpu_torch import models
+
+    assert [(m.name, m.value) for m in models.EventEncodingType] == \
+        [(m.name, m.value) for m in jax_models.EventEncodingType]
+    for model_type in models.ModelType:
+        jax_type = jax_models.ModelType(model_type.value)
+        for name in ("get_batch_size", "get_learning_rate", "get_window_size"):
+            assert getattr(models, name)(model_type, get_default()) == \
+                getattr(jax_models, name)(jax_type, jax_get_default()), name

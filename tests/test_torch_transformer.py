@@ -125,9 +125,10 @@ def test_create_model_defaults_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and neither ``chip_smoke`` nor
-    ``scripts/spec_acceptance.py`` (imported as modules, without running
-    ``main``), loads JAX or anything of the JAX package ``composer_tpu``.
+    """No module of the port (the CLI and the modules it needs included),
+    and neither ``chip_smoke`` nor ``scripts/spec_acceptance.py`` (imported
+    as modules, without running ``main``), loads JAX or anything of the JAX
+    package ``composer_tpu``.
     conftest imports JAX here, so the check runs in a fresh interpreter."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
@@ -144,7 +145,10 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'composer_tpu'))\n"
         "missing = {'composer_tpu_torch.ops.decode_kernel_spec', "
         "'composer_tpu_torch.ops.decode_kernel_segmented', 'composer_tpu_torch.serving', "
-        "'composer_tpu_torch.midi.midi_io'} "
+        "'composer_tpu_torch.midi.midi_io', 'composer_tpu_torch.cli', "
+        "'composer_tpu_torch.utils', 'composer_tpu_torch.logging_utils', "
+        "'composer_tpu_torch.click_utils', 'composer_tpu_torch.midi.fast_encode', "
+        "'composer_tpu_torch.midi.serialization', 'composer_tpu_torch.data.preprocess'} "
         "- set(names)\n"
         "print(len(names), 'modules;', bad, 'missing', missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n"
