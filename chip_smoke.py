@@ -38,18 +38,22 @@ Phases (any failure exits non-zero):
 4. The flash attention kernels (csrc/flash_attention.cu) against their
    plain PyTorch version, relative attention off and on, dropout 0 and 0.1
    with the same seed (both draw the same Philox bits), on each route of
-   ``kernel_variant``: float32 at the training path's shapes (B=8, H=16,
-   S=1024, D=16, W=1024; the scalar kernels), with TF32 off, O and lse
-   within 2e-4, dq/dk/dv/dE within 5e-4 of their scale (float32 atomics
-   change the summation order); bfloat16 at the same shapes and at the
-   flagship's (B=8, H=16, S=2048, D=64, W=2048; the tensor-core kernels of
-   csrc/flash_attention_mma.cuh), lse within 1e-3 and O, dq/dk/dv/dE within
-   2% of their scale and, row by row, within 2% of each row's own norm
-   (floored at a tenth of the tensor's RMS row norm), so that an error
-   confined to far tiles, where typical values are small, still shows.
-   ``python3 chip_smoke.py --flash-planted-faults`` shows that rule
-   failing on faults planted in far tiles of copies of the kernels (a band
-   row shifted by one, two dropout words swapped).
+   ``kernel_variant`` at every head_dim built (16, 32, 64, 128), each at
+   the shapes the main path gives it (``FLASH_CHECKS``): float32 (the
+   scalar kernels) at the training path's shapes (B=8, H=16, S=1024,
+   W=1024) at D=16 and 32, at the flagship's (B=8, S=2048, D=64, W=2048)
+   and the embed-2048 architecture's (B=4, S=2048, D=128, W=2048), with
+   TF32 off, O and lse within 2e-4, dq/dk/dv/dE within 5e-4 of their scale
+   (float32 atomics change the summation order); bfloat16 (the tensor-core
+   kernels of csrc/flash_attention_mma.cuh) at the same shapes and at D=48,
+   which the wrapper pads to the D=64 kernels, lse within 1e-3 and O,
+   dq/dk/dv/dE within 2% of their scale and, row by row, within 2% of each
+   row's own norm (floored at a tenth of the tensor's RMS row norm), so
+   that an error confined to far tiles, where typical values are small,
+   still shows. ``python3 chip_smoke.py --flash-planted-faults`` shows these
+   rules failing on faults planted in far tiles of copies of the kernels (a
+   band row shifted by one, two dropout words swapped), bf16 at D=16, 64
+   and 128 and float32 at D=64.
 5. The training path, ``Trainer.train`` on a ``WindowDataset`` of event ids
    encoded by the MIDI codec: the default config with
    ``use_pallas_attention`` (bf16 compute, dropout 0.1), batch 8 x 1024,
@@ -69,9 +73,28 @@ Phases (any failure exits non-zero):
    and the losses be finite; step time, train events/s and the profile's
    shares are printed. Then the flash kernels, their plain version and, as
    a yardstick the port never calls, ``scaled_dot_product_attention`` are
-   timed with CUDA events on each route: bf16 at the training path's shapes
-   and at the flagship's (B=8, S=2048, D=64), float32 at the training
-   path's, each beside ``flash_bound``.
+   timed with CUDA events for each (route, head_dim) built at its shape of
+   phase 4 (``FLASH_TIMED``), each beside ``flash_bound``.
+5c. The embed-2048 architecture (``EMBED2048``: vocab 390, 8 layers x 16
+   heads of 128, window 2048, relative attention; about 441 M parameters)
+   through ``Trainer.train`` with ``use_pallas_attention``, bf16 compute,
+   dropout 0, batch 4 x 2048, lr 1e-3, 5 steps on codec-encoded event ids:
+   the tensor-core kernels at head_dim 128 must launch 8 x 5 times each way
+   and the losses be finite; step time, train events/s, peak device memory
+   and the profile's shares are printed. One more step at dropout 0.1 /
+   0.1 on the trained weights (8 launches each way, counted apart). Then
+   ``generate_ids(engine="auto")`` of the trained model at B=8 x (10 +
+   246): it must take the wide kernel, in sub-batches of what its shared
+   memory admits (``_wide_batch_cap``: 5), and ``decode_generate`` never.
+   The wide kernel against its plain version in float32 at these widths,
+   cut to 2 layers: 4 ragged rows x 150 steps at cache 256, greedy and
+   sampled, identical ids.
+5d. ``Trainer.train`` for 3 steps through each flash kernel built that 5-5c
+   do not train, on the model whose attention has its shape (dropout 0.1 /
+   0.1): bf16 and float32 at head_dim 32 (embed 512, 16 heads, 8 x 1024),
+   float32 at 64 (the flagship with ``mixed_precision`` off, 8 x 2048) and
+   at 128 (the embed-2048 architecture in float32, 4 x 2048); 8 launches a
+   step each way, finite losses.
 6. The speculative kernel ``spec_decode`` (csrc/spec_decode.cu, one
    thread-block cluster of G blocks, G printed) against its plain PyTorch
    version in float32: identical tokens and stats, greedy and sampled,
@@ -240,7 +263,8 @@ H100 SXM's published peaks, the resident decode kernels' bytes counting
 each step's weights and K/V prefixes again where they outgrow the 50 MB L2
 (``kv_bytes``); the flash pair once for each
 (dtype, head_dim) built, told apart by ``variant``, ``dtype`` and
-``head_dim``; ``cluster``, the blocks a sequence took, for the cluster
+``head_dim``, timed at ``shape``, its launches those of the phase that
+trains through it (5, 5b, 5c or 5d); ``cluster``, the blocks a sequence took, for the cluster
 kernels, else null; for the speculative and the two wide kernels
 ``parent_ms``, the ``--parent`` checkout's times or null; ``http_launches``,
 the kernel's launches in phase 10 (a)-(d), read from its wrapper's count;
@@ -250,9 +274,9 @@ servers), then, as the last line,
 
     python3 chip_smoke.py --flash-planted-faults
 
-runs phase 4's bf16 rule on the sound tensor-core flash kernels and on
-copies with faults planted in far tiles, and exits 0 only if the sound
-kernels pass and every fault fails.
+runs phase 4's rules on the sound flash kernels and on copies with faults
+planted in far tiles (bf16 at D=16, 64 and 128, float32 at 64), and exits 0
+only if the sound kernels pass and every fault fails in every case.
 """
 
 from __future__ import annotations
@@ -283,10 +307,21 @@ FLASH_BF16_LSE_TOL = 1e-3  # lse, absolute: exact bf16 products summed in f32 on
 FLASH_ROW_FLOOR = 0.1
 FLASH_SHAPE = (8, 16, 1024, 16, 1024)  # B, H, S, D, W of the training path
 FLASH_FLAGSHIP_SHAPE = (8, 16, 2048, 64, 2048)  # the flagship's: 16 heads of 64, window 2048
+# The embed-2048 architecture's (composer_tpu/bench.py:1559-1563): batch 4 x
+# 2048, 16 heads of 128, window 2048.
+FLASH_WIDE_SHAPE = (4, 16, 2048, 128, 2048)
 TRAIN_STEPS = 20
 TRAIN_BATCH, TRAIN_WINDOW = 8, 1024
 F32_TRAIN_STEPS = 3  # float32 steps: the scalar flash kernels' route
 FLAGSHIP_TRAIN_STEPS, FLAGSHIP_TRAIN_WINDOW = 5, 2048
+# The embed-2048 architecture (composer_tpu/bench.py:1559-1563; README's
+# scaled model): 8 layers x 16 heads of 128, window 2048, relative attention,
+# batch 4 x 2048, lr 1e-3, flash attention, bf16 compute, dropout 0.
+EMBED2048 = dict(vocab_size=390, embed_dim=2048, window_size=2048, num_layers=8, num_heads=16,
+                 use_relative_attention=True)
+EMBED2048_TRAIN_STEPS, EMBED2048_BATCH = 5, 4
+EMBED2048_GENERATE_EVENTS = 246  # 10 + 246 at B=8, cut from 1014 for time
+WIDTH_TRAIN_STEPS = 3  # phase 5d: steps through each remaining (dtype, head_dim) built
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores, published
@@ -778,10 +813,26 @@ def flash_inputs(dtype, use_rel: bool, device, seed: int, shape=FLASH_SHAPE):
     return q, k, v, tensor(H, W, D, std=0.25) if use_rel else None, dout
 
 
-# The routes phase 4 checks, each at the shapes the main path gives it:
-# (dtype, shape) -> (route, head_dim) of ops/flash_attention.py::VARIANTS.
+def flash_shape(depth: int) -> tuple:
+    """The training path's flash shape (B=8, H=16, S=W=1024) at another
+    head_dim: embed 16 x ``depth``."""
+    return FLASH_SHAPE[:3] + (depth,) + FLASH_SHAPE[4:]
+
+
+# What phase 4 checks, each (dtype, head_dim) built at the shapes the main
+# path gives it (phases 5, 5b, 5c, 5d), and head_dim 48, which the wrapper
+# pads to the D=64 kernels: (dtype, shape) -> (route, head_dim) of
+# ops/flash_attention.py::VARIANTS.
 FLASH_CHECKS = ((torch.float32, FLASH_SHAPE), (torch.bfloat16, FLASH_SHAPE),
-                (torch.bfloat16, FLASH_FLAGSHIP_SHAPE))
+                (torch.bfloat16, FLASH_FLAGSHIP_SHAPE), (torch.bfloat16, FLASH_WIDE_SHAPE),
+                (torch.bfloat16, flash_shape(32)), (torch.float32, flash_shape(32)),
+                (torch.float32, FLASH_FLAGSHIP_SHAPE), (torch.float32, FLASH_WIDE_SHAPE),
+                (torch.bfloat16, flash_shape(48)))
+# The shape each (route, head_dim) built is timed at (``flash_timings``).
+FLASH_TIMED = {("mma", 16): FLASH_SHAPE, ("mma", 32): flash_shape(32),
+               ("mma", 64): FLASH_FLAGSHIP_SHAPE, ("mma", 128): FLASH_WIDE_SHAPE,
+               ("scalar", 16): FLASH_SHAPE, ("scalar", 32): flash_shape(32),
+               ("scalar", 64): FLASH_FLAGSHIP_SHAPE, ("scalar", 128): FLASH_WIDE_SHAPE}
 
 
 def flash_row_error(ours, plain) -> float:
@@ -844,16 +895,17 @@ def flash_case(fa, dtype, shape, use_rel: bool, rate: float, device, label: str)
 
 
 def flash_vs_plain(device) -> dict:
-    """Phase 4; returns, by ``(route, head_dim)`` and direction (``fwd``: O,
-    lse; ``bwd``: dq, dk, dv, dE), the largest absolute error with its
-    tensor's scale and, for bf16, the largest row error of its norm."""
+    """Phase 4; returns, by ``(route, head_dim)`` (the head_dim as called:
+    48 runs the D=64 kernels) and direction (``fwd``: O, lse; ``bwd``: dq,
+    dk, dv, dE), the largest absolute error with its tensor's scale and, for
+    bf16, the largest row error of its norm."""
     from composer_tpu_torch.ops import flash_attention as fa
 
     errors = {}
     before = (sum(fa.flash_attention_forward.launches.values()),
               sum(fa.flash_attention_backward.launches.values()))
     for dtype, shape in FLASH_CHECKS:
-        variant = (fa.kernel_variant(dtype, shape[3]), shape[3])
+        variant = (fa.ROUTES[dtype], shape[3])
         worst = errors.setdefault(variant, {})
         for use_rel in (False, True):
             for rate in (0.0, 0.1):
@@ -880,8 +932,9 @@ def flash_vs_plain(device) -> dict:
 
 def planted_fault(kind: str, where: str) -> tuple:
     """Edits ``(file, text, replacement)`` that plant a fault in a copy of
-    the tensor-core kernels, confined to the q-tile/k-tile pairs where the
-    C condition ``where`` (on ``ib``, ``jb`` and ``bh``) holds: ``"band"``
+    the flash kernels (the tensor-core ones at every head_dim and the
+    float32 scalar ones), confined to the q-tile/k-tile pairs where the C
+    condition ``where`` (on ``ib``, ``jb`` and ``bh``) holds: ``"band"``
     shifts the staged band by one row, ``"dropout"`` swaps two neighbouring
     Philox words, forward and backward."""
     if kind == "band":
@@ -890,7 +943,13 @@ def planted_fault(kind: str, where: str) -> tuple:
                  f"a.window - kBlock - (ib - jb) * kBlock + ({where}), a.window);"),
                 ("flash_attention_mma.cuh",
                  "W - kBlock - (ib - jb) * kBlock, W);",
-                 f"W - kBlock - (ib - jb) * kBlock + ({where}), W);"))
+                 f"W - kBlock - (ib - jb) * kBlock + ({where}), W);"),
+                ("flash_attention.cu",
+                 "a.window - kBlock - (ib - jb) * kBlock, a.window);",
+                 f"a.window - kBlock - (ib - jb) * kBlock + ({where}), a.window);"),
+                ("flash_attention.cu",
+                 "W - kBlock - t * kBlock, W);",
+                 f"W - kBlock - t * kBlock + ({where}), W);"))
     return (("flash_attention_mma.cuh",
              "const unsigned w[4] = {wg.x, wg.y, wh.x, wh.y};",
              f"const bool swap = {where};\n"
@@ -899,57 +958,82 @@ def planted_fault(kind: str, where: str) -> tuple:
              "words[c] = slot[4 * (4 * (4 * grp + c) + t) + 16 * grp + cl];",
              "words[c] = slot[4 * (4 * (4 * grp + c) + t) + 16 * grp + cl];\n"
              f"        if ({where}) {{ const unsigned w0 = words[0]; words[0] = words[1]; "
-             "words[1] = w0; }"))
+             "words[1] = w0; }"),
+            ("flash_attention.cu",
+             "p *= word(bits, c) >= a.threshold",
+             f"p *= word(bits, ({where}) ? c ^ 1 : c) >= a.threshold"),
+            ("flash_attention.cu",
+             "keep_multiplier(a, seed, bh, ib * kBlock + i, kpos);",
+             f"keep_multiplier(a, seed, bh, ib * kBlock + i, ({where}) ? kpos ^ 1 : kpos);"))
 
 
 # Where each fault lies: every tile pair 4 or more apart, or (at S=1024, 16
-# tiles) the one pair of the last q-tile and the first k-tile of one head.
+# tiles) the one pair of the last q-tile and the first k-tile of one head
+# (at S=2048, the pairs 15 to 31 tiles apart of one head).
 FLASH_PLANTED_FAULTS = {
     f"{kind}, {label}": planted_fault(kind, where) for kind in ("band", "dropout")
     for label, where in (("tiles 4+ apart", "ib - jb >= 4"),
                          ("tiles 15+ apart, head 0", "ib - jb >= 15 && bh == 0"))}
 
 
+# What each planted fault is run at: the bf16 tensor-core kernels at head_dim
+# 16, 64 and 128 (the split backward) and the float32 scalar kernels at 64,
+# each at its main-path shape, with the band and dropout 0.1.
+FLASH_FAULT_CASES = ((torch.bfloat16, FLASH_SHAPE), (torch.bfloat16, FLASH_FLAGSHIP_SHAPE),
+                     (torch.bfloat16, FLASH_WIDE_SHAPE), (torch.float32, FLASH_FLAGSHIP_SHAPE))
+
+
 def flash_planted_faults(device, card: str) -> int:
-    """``--flash-planted-faults``: phase 4's bf16 rule on the sound
-    tensor-core kernels and on each of ``FLASH_PLANTED_FAULTS``, built from
-    a copy of csrc/ under build/planted/, at both bf16 shapes with the band
-    and dropout 0.1. Returns 0 when the sound kernels pass and every planted
-    fault fails the rule; prints whether the rule of scale alone (each
-    element within 2% of its tensor's largest value) would have passed."""
+    """``--flash-planted-faults``: phase 4's rules on the sound flash
+    kernels and on each of ``FLASH_PLANTED_FAULTS``, built (one nvcc each,
+    at once) from copies of csrc/ under build/planted/, at each of
+    ``FLASH_FAULT_CASES``. Returns 0 when the sound kernels pass and every
+    planted fault fails the rule in every case; prints, for bf16, whether
+    the rule of scale alone (each element within 2% of its tensor's largest
+    value) would have passed."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     from composer_tpu_torch.ops import _build
     from composer_tpu_torch.ops import flash_attention as fa
 
     sound = _build.CSRC
+    faults = (("sound", ()),) + tuple(FLASH_PLANTED_FAULTS.items())
+    copies = []
+    for index, (fault, edits) in enumerate(faults):
+        csrc = sound
+        if edits:
+            csrc = _build.BUILD_DIR.parent / "planted" / str(index) / "csrc"
+            shutil.rmtree(csrc, ignore_errors=True)
+            shutil.copytree(sound, csrc)
+            for name, text, replacement in edits:
+                source = (csrc / name).read_text()
+                if source.count(text) != 1:
+                    raise AssertionError(f"planted fault {fault!r}: {text!r} not found once "
+                                         f"in {name}")
+                (csrc / name).write_text(source.replace(text, replacement))
+        copies.append(csrc)
+    with ThreadPoolExecutor(len(copies)) as pool:
+        list(pool.map(lambda csrc: _build.build("flash_attention", csrc), copies))
     as_intended = True
     try:
-        for index, (fault, edits) in enumerate((("sound", ()),)
-                                               + tuple(FLASH_PLANTED_FAULTS.items())):
-            if edits:
-                csrc = _build.BUILD_DIR.parent / "planted" / str(index) / "csrc"
-                shutil.rmtree(csrc, ignore_errors=True)
-                shutil.copytree(sound, csrc)
-                for name, text, replacement in edits:
-                    source = (csrc / name).read_text()
-                    if source.count(text) != 1:
-                        raise AssertionError(f"planted fault {fault!r}: {text!r} not found once")
-                    (csrc / name).write_text(source.replace(text, replacement))
-                _build.CSRC = csrc
+        for (fault, edits), csrc in zip(faults, copies):
+            _build.CSRC = csrc
             _build._LIBRARIES.pop("flash_attention", None)
             _build.load_library("flash_attention")
-            for shape in (FLASH_SHAPE, FLASH_FLAGSHIP_SHAPE):
-                results = flash_case(fa, torch.bfloat16, shape, True, 0.1, device,
+            for dtype, shape in FLASH_FAULT_CASES:
+                results = flash_case(fa, dtype, shape, True, 0.1, device,
                                      f"flash fault {fault!r}")
-                faults = [f for _, f in results.values() if f]
+                failed = [f for _, f in results.values() if f]
                 scale_rule = all(report["max_abs_err"] <= BF16_LOGIT_REL_TOL * report["scale"]
                                  for name, (report, _) in results.items() if name != "lse")
-                print(f"flash fault {fault!r} B,H,S,D,W={shape}: the rule of scale alone "
-                      f"{'passes' if scale_rule else 'fails'}; phase 4's rule "
-                      + ("fails (" + "; ".join(faults) + ")" if faults else "passes")
+                print(f"flash fault {fault!r} {str(dtype)[6:]} B,H,S,D,W={shape}: "
+                      + (f"the rule of scale alone {'passes' if scale_rule else 'fails'}; "
+                         if dtype == torch.bfloat16 else "")
+                      + "phase 4's rule "
+                      + ("fails (" + "; ".join(failed) + ")" if failed else "passes")
                       + f" [{card}]", flush=True)
-                as_intended &= bool(faults) == bool(edits)
+                as_intended &= bool(failed) == bool(edits)
     finally:
         _build.CSRC = sound
         _build._LIBRARIES.pop("flash_attention", None)
@@ -1166,6 +1250,212 @@ def flagship_train_path(device, card: str) -> dict:
         raise AssertionError(f"bad flagship losses: {losses}")
     profile_steps(trainer, state, dataset, card)
     return {"launches": launches, "step_ms": mean_step * 1e3}
+
+
+def embed2048_train_path(device, card: str, yaml_config) -> dict:
+    """Phase 5c: ``Trainer.train`` on the embed-2048 architecture
+    (``EMBED2048``: 16 heads of 128) with ``use_pallas_attention``, bf16
+    compute, dropout 0, batch 4 x 2048, lr 1e-3, on codec-encoded event ids:
+    the tensor-core kernels at head_dim 128 must launch 8 x 5 times each way;
+    then one step at the flagship recipe's dropout 0.1 / 0.1 on the trained
+    weights (8 more each way, counted apart), and ``generate_ids(engine=
+    "auto")`` of the trained model at B=8 x (10 + 246), which takes the wide
+    kernel in sub-batches (``_wide_batch_cap``)."""
+    import dataclasses
+
+    from composer_tpu_torch.data import WindowDataset
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+    from composer_tpu_torch.ops.decode_kernel_batched import decode_generate
+    from composer_tpu_torch.train import generate as gen
+    from composer_tpu_torch.train.trainer import Trainer
+
+    config = TransformerConfig(**EMBED2048, dtype=torch.bfloat16, attention_dropout_rate=0.0,
+                               residual_dropout_rate=0.0, use_pallas_attention=True)
+    steps, batch, window = EMBED2048_TRAIN_STEPS, EMBED2048_BATCH, config.window_size
+    events = batch * (window + 1) * (steps + 1)
+    corpus = training_corpus(yaml_config, events)[:events]
+    dataset = WindowDataset(corpus[:batch * (window + 1) * steps], batch, window, shuffle=True,
+                            seed=0)
+    if len(dataset) != steps:
+        raise AssertionError(f"{len(dataset)} batches, wanted {steps}")
+    model = Transformer(config)
+    params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(model, ModelType.TRANSFORMER, learning_rate=1e-3, seed=0, device=device)
+    state = trainer.init_state(batch, window)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_flash_counts()
+        state, step_seconds, losses, scalar = timed_train(trainer, state, dataset, tmp)
+        launches = flash_counts(("mma", 128))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    mean_step = float(np.mean(step_seconds[1:]))
+    print(f"embed-2048 train ({params:,} parameters): {len(losses)} steps, losses "
+          f"{[round(x, 4) for x in losses]}, flash (bf16 tensor-core, head_dim 128) launches fwd "
+          f"{launches[0]} bwd {launches[1]}; peak device memory {peak_gb:.2f} GiB", flush=True)
+    print(f"embed-2048 train step time {mean_step * 1e3:.2f} ms (steps 2-{steps}, host clock "
+          f"after synchronize; min {min(step_seconds[1:]) * 1e3:.2f}, max "
+          f"{max(step_seconds[1:]) * 1e3:.2f}), {batch * window / mean_step:.1f} train events/s; "
+          f"step 1 {step_seconds[0] * 1e3:.2f} ms; the trainer's events_per_second scalar "
+          f"{scalar:.1f} [{card}]", flush=True)
+    expected = (steps * config.num_layers,) * 2
+    if launches != expected:
+        raise AssertionError(f"embed-2048 flash launches {launches}, wanted {expected}")
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"bad embed-2048 losses: {losses}")
+    profile_steps(trainer, state, dataset, card)
+
+    # One step at dropout 0.1 / 0.1 on the trained weights: the in-kernel
+    # dropout at head_dim 128.
+    dropout_config = dataclasses.replace(config, attention_dropout_rate=0.1,
+                                         residual_dropout_rate=0.1)
+    dropout_trainer = Trainer(Transformer(dropout_config), ModelType.TRANSFORMER,
+                              learning_rate=1e-3, seed=0, device=device)
+    dropout_state = dropout_trainer.init_state(batch, window)
+    dropout_state.model.load_state_dict(state.model.state_dict())
+    x, y = next(iter(WindowDataset(corpus[-batch * (window + 1):], batch, window)))
+    reset_flash_counts()
+    dropout_loss = float(dropout_trainer.train_step(
+        dropout_state, x, y, dropout_trainer.make_dropout_generator())["loss"])
+    dropout_launches = flash_counts(("mma", 128))
+    print(f"embed-2048 dropout 0.1 / 0.1 step: loss {dropout_loss:.4f}, flash launches fwd "
+          f"{dropout_launches[0]} bwd {dropout_launches[1]}", flush=True)
+    if dropout_launches != (config.num_layers,) * 2 or not np.isfinite(dropout_loss):
+        raise AssertionError(f"embed-2048 dropout step: launches {dropout_launches}, loss "
+                             f"{dropout_loss}")
+    del dropout_trainer, dropout_state
+    trained = state.model.eval()
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # The trained model through generate_ids(auto): its weights outgrow the
+    # L2, so the wide kernel, in sub-batches of what its shared memory admits.
+    prompt = encoded_prompt(yaml_config, PROMPT_EVENTS)
+    cache_len = gen._padded_cache_len(PROMPT_EVENTS + EMBED2048_GENERATE_EVENTS)
+    sub_batch = gen._wide_batch_cap(config, cache_len)
+    gen.generate_ids(trained, ModelType.TRANSFORMER, None, prompt, length=16, engine="auto")
+    dw.decode_wide.launches = 0
+    decode_generate.launches_batched = decode_generate.launches_single = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ids = gen.generate_ids(trained, ModelType.TRANSFORMER, None, np.tile(prompt, (8, 1)),
+                           length=EMBED2048_GENERATE_EVENTS, temperature=1.0, seed=5,
+                           engine="auto")
+    wall = time.perf_counter() - start
+    wide, fused = dw.decode_wide.launches, (decode_generate.launches_batched
+                                            + decode_generate.launches_single)
+    print(f"embed-2048 generate_ids(auto) B=8 x ({PROMPT_EVENTS} + {EMBED2048_GENERATE_EVENTS}): "
+          f"route decode_wide ({wide} launches, sub-batch {sub_batch} of 8 by the wide kernel's "
+          f"shared memory), decode_generate launches {fused}; {wall:.3f} s, "
+          f"{8 * EMBED2048_GENERATE_EVENTS / wall:.1f} events/s [{card}]", flush=True)
+    if wide != -(-8 // sub_batch) or fused:
+        raise AssertionError(f"embed-2048 generate: {wide} wide launches for sub-batch "
+                             f"{sub_batch}, {fused} fused")
+    if ids.shape != (8, PROMPT_EVENTS + EMBED2048_GENERATE_EVENTS) or ids.min() < 0 \
+            or ids.max() >= config.vocab_size:
+        raise AssertionError(f"embed-2048 generate: ids {ids.shape} outside the vocabulary")
+    del trained
+    gen._WIDE_ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dropout_launches": dropout_launches,
+            "step_ms": mean_step * 1e3, "sub_batch": sub_batch}
+
+
+def wide_2048_vs_plain(device) -> float:
+    """Phase 5c: the wide decode kernel against its plain version in
+    float32 at the embed-2048 widths (16 heads of 128), cut to 2 layers for
+    time, random weights from a numpy seed: 4 ragged rows (the most its
+    shared memory admits in float32) x 150 steps at cache 256, greedy and
+    sampled; identical ids, last-step logits within F32_LOGIT_TOL. Returns
+    the largest logits error."""
+    import dataclasses
+
+    from composer_tpu_torch.models.convert import params_from_flax
+    from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from composer_tpu_torch.ops import decode_kernel_wide as dw
+
+    config = dataclasses.replace(TransformerConfig(**EMBED2048), num_layers=2)
+    rows = 4
+    if not dw.wide_kernel_fits(config, rows, WIDE_CHECK_CACHE, torch.float32):
+        raise AssertionError("the wide kernel does not admit 4 float32 rows at embed 2048")
+    model = Transformer(config)
+    model.load_state_dict(params_from_flax(random_flax_params(config, seed=9), config))
+    packed = dw.pack_weights_wide(model.state_dict(), config, dtype=torch.float32, device=device)
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(0, 390, (rows, 9)).astype(np.int32)
+    plens = np.array([9, 3, 6, 1], np.int32)
+    worst = 0.0
+    for kind, sampling in (("greedy", (0.0, 0, 0.0)),
+                           ("sampled", tuple(v[:rows] for v in WIDE_SAMPLED))):
+        args = (packed, config, prompts, plens, sampling)
+        ours, logits, _ = wide_run(*args, length=142, cache_len=WIDE_CHECK_CACHE)
+        plain, plain_logits, _ = wide_run(*args, length=142, cache_len=WIDE_CHECK_CACHE,
+                                          plain=True)
+        err = float((logits - plain_logits).abs().max())
+        print(f"wide embed-2048 (2 layers, head_dim 128) {kind} f32: ids "
+              f"{'identical' if torch.equal(ours, plain) else 'DIFFER'} ({ours.shape[0]} x "
+              f"{ours.shape[1]}, {len(set(ours.ravel().tolist()))} distinct), last-step logits "
+              f"max_abs_err {err:.3e} (limit {F32_LOGIT_TOL})", flush=True)
+        if not torch.equal(ours, plain) or err > F32_LOGIT_TOL:
+            raise AssertionError(f"wide embed-2048 {kind}: kernel and plain version differ")
+        worst = max(worst, err)
+    return worst
+
+
+def width_train_path(device, card: str, yaml_config) -> dict:
+    """Phase 5d: ``Trainer.train`` for ``WIDTH_TRAIN_STEPS`` steps through
+    each flash kernel built that phases 5-5c do not train, each on the model
+    whose attention has that shape (``use_pallas_attention``, relative
+    attention, dropout 0.1 / 0.1): bf16 and float32 at head_dim 32 (embed
+    512, 16 heads, batch 8 x 1024), float32 at 64 (the flagship with
+    ``mixed_precision`` off, 8 x 2048) and at 128 (the embed-2048
+    architecture in float32, 4 x 2048). Returns the launches by
+    ``(route, head_dim)``."""
+    from composer_tpu_torch.data import WindowDataset
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from composer_tpu_torch.train.trainer import Trainer
+
+    cases = (
+        (("mma", 32), dict(vocab_size=390, embed_dim=512, window_size=1024, num_layers=8,
+                           num_heads=16, use_relative_attention=True), torch.bfloat16, 8),
+        (("scalar", 32), dict(vocab_size=390, embed_dim=512, window_size=1024, num_layers=8,
+                              num_heads=16, use_relative_attention=True), torch.float32, 8),
+        (("scalar", 64), FLAGSHIP, torch.float32, 8),
+        (("scalar", 128), EMBED2048, torch.float32, EMBED2048_BATCH),
+    )
+    launched = {}
+    for variant, widths, dtype, batch in cases:
+        config = TransformerConfig(**widths, dtype=dtype, use_pallas_attention=True)
+        if config.head_dim != variant[1]:
+            raise AssertionError(f"{widths} has head_dim {config.head_dim}, not {variant[1]}")
+        window, steps = config.window_size, WIDTH_TRAIN_STEPS
+        events = batch * (window + 1) * steps
+        dataset = WindowDataset(training_corpus(yaml_config, events)[:events], batch, window,
+                                shuffle=True, seed=0)
+        trainer = Trainer(Transformer(config), ModelType.TRANSFORMER, learning_rate=1e-3,
+                          seed=0, device=device)
+        state = trainer.init_state(batch, window)
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_flash_counts()
+            state, step_seconds, losses, _ = timed_train(trainer, state, dataset, tmp)
+            launches = flash_counts(variant)
+        mean_step = float(np.mean(step_seconds[1:]))
+        print(f"train {str(dtype)[6:]} embed {config.embed_dim} (head_dim {variant[1]}) "
+              f"{batch} x {window}: losses {[round(x, 4) for x in losses]}, flash "
+              f"({variant[0]}, {variant[1]}) launches fwd {launches[0]} bwd {launches[1]}; step "
+              f"time {mean_step * 1e3:.2f} ms (steps 2-{steps}), "
+              f"{batch * window / mean_step:.1f} train events/s [{card}]", flush=True)
+        if launches != (steps * config.num_layers,) * 2:
+            raise AssertionError(f"{variant} launches {launches}, wanted "
+                                 f"{steps * config.num_layers} each")
+        if len(losses) != steps or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"bad {variant} losses: {losses}")
+        launched[variant] = launches
+        del trainer, state
+        torch.cuda.empty_cache()
+    return launched
 
 
 def profile_steps(trainer, state, dataset, card: str, steps: int = 3) -> None:
@@ -3621,18 +3911,30 @@ def main() -> int:
     each = ", ".join(f"{name} {_build.BUILD_INFO[name]['seconds']:.1f} s" for name in libraries)
     print(f"kernel build: {time.perf_counter() - start:.1f} s ({each})", flush=True)
 
+    def phase_done(name: str) -> None:
+        print(f"{name} done at {time.perf_counter() - start:.1f} s (host clock)", flush=True)
+
     errors = kernel_vs_plain(device)
     path = main_path(device, card)
     times = timings(device, path["engine"], path["prompt"], card)
+    phase_done("phases 2-3")
     flash_check = flash_vs_plain(device)
+    phase_done("phase 4")
     training = train_path(device, card, path["prompt"])
+    phase_done("phase 5")
     flagship_training = flagship_train_path(device, card)
-    flash_times = {
-        ("mma", 16): flash_timings(device, card, torch.bfloat16, FLASH_SHAPE),
-        ("mma", 64): flash_timings(device, card, torch.bfloat16, FLASH_FLAGSHIP_SHAPE,
-                                   plain_repeats=1),
-        ("scalar", 16): flash_timings(device, card, torch.float32, FLASH_SHAPE),
-    }
+    phase_done("phase 5b")
+    wide_training = embed2048_train_path(device, card, get_default())
+    wide_2048_error = wide_2048_vs_plain(device)
+    phase_done("phase 5c")
+    width_training = width_train_path(device, card, get_default())
+    phase_done("phase 5d")
+    from composer_tpu_torch.ops import flash_attention as fa
+
+    flash_times = {variant: flash_timings(device, card, fa.DTYPES[variant[0]], shape,
+                                          plain_repeats=1 if shape[2] > 1024 else 3)
+                   for variant, shape in FLASH_TIMED.items()}
+    phase_done("flash timings")
     spec_error = spec_vs_plain(device)
     spec_vs_sequential(device)
     parent = parent.result() if parent is not None else None
@@ -3649,6 +3951,7 @@ def main() -> int:
     wide_serve = wide_serve_path(device, card, flagship, wide_segment["first_ms"])
     http = http_path(device, card, flagship, wide_path["fused_packed"])
     cli = cli_path(device, card)
+    phase_done("phases 6-11")
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -3665,14 +3968,15 @@ def main() -> int:
             "cli_launches": cli[form]})
     flash_launches = {("mma", 16): training["launches"][("mma", 16)],
                       ("mma", 64): flagship_training["launches"],
-                      ("scalar", 16): training["launches"][("scalar", 16)]}
+                      ("mma", 128): wide_training["launches"],
+                      ("scalar", 16): training["launches"][("scalar", 16)], **width_training}
     # One entry a direction for each (dtype, head_dim) built: max_abs_err is
     # absolute, beside its tensor's scale (err_scale) and, for bf16, the
-    # largest row error of the row's norm (row_rel_err).
-    for variant, dtype, source in (
-            (("mma", 16), "bfloat16", "flash_attention_mma.cuh"),
-            (("mma", 64), "bfloat16", "flash_attention_mma.cuh"),
-            (("scalar", 16), "float32", "flash_attention.cu")):
+    # largest row error of the row's norm (row_rel_err); times at
+    # FLASH_TIMED's shape, bias off, dropout 0.
+    for variant in fa.VARIANTS:
+        dtype = str(fa.DTYPES[variant[0]])[6:]
+        source = "flash_attention_mma.cuh" if variant[0] == "mma" else "flash_attention.cu"
         times = flash_times[variant][(False, 0.0)]
         for index, (direction, replaces) in enumerate((
                 ("fwd", "composer_tpu/ops/pallas_attention.py:235"),
@@ -3681,6 +3985,7 @@ def main() -> int:
             kernels.append({
                 "name": f"flash_attention_{direction}", "route": "cuda",
                 "variant": variant[0], "dtype": dtype, "head_dim": variant[1],
+                "shape": list(FLASH_TIMED[variant]),
                 "source": f"composer_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": flash_launches[variant][index],
                 "max_abs_err": check["max_abs_err"], "err_scale": check["scale"],
@@ -3713,7 +4018,8 @@ def main() -> int:
         "max_abs_err": wide_error, "ms": wide[8]["bf16"], "plain_ms": wide[8]["plain_ms"],
         "bound_ms": wide_bound_ms, "bound_by": wide_bound_by, "library_ms": None,
         "cluster": None, "parent_ms": wide[8]["parent_ms"], "http_launches": http["wide"],
-        "cli_launches": cli["wide"]})
+        "cli_launches": cli["wide"], "embed2048_max_abs_err": wide_2048_error,
+        "embed2048_sub_batch": wide_training["sub_batch"]})
     kernels.append({
         "name": "decode_segment_wide", "route": "cuda",
         "source": "composer_tpu_torch/csrc/decode_wide_segment.cu",

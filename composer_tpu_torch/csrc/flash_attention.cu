@@ -24,9 +24,12 @@
 // one per element, so the backward regenerates the forward's mask whatever
 // its tiling; the row normaliser l comes from the undropped p.
 //
-// Two pairs of kernels, one per route (ops/flash_attention.py::kernel_variant):
+// Two pairs of kernels, one per route (ops/flash_attention.py::kernel_variant),
+// each built at head_dim 16, 32, 64 and 128 (the wrapper zero-pads any
+// other head_dim up to 128 to the next of these, as the JAX wrapper pads to
+// 128 lanes, with the scale of the true depth):
 //
-// * bf16, head_dim 16 and 64: the tensor-core kernels of
+// * bf16: the tensor-core kernels of
 //   flash_attention_mma.cuh (flash_forward_mma_kernel, replacing
 //   _flash_kernel; flash_backward_mma_kernel, replacing _flash_bwd_kernel).
 //   Every product is mma.sync.m16n8k16 (bf16 in, float32 sums): QK^T, PV,
@@ -50,31 +53,40 @@
 //     read back skewed (the Music Transformer's skew), with no block barrier
 //     in the forward;
 //   - shared memory sized by the bias, so that more blocks fit an SM without
-//     it.
+//     it (at D=128 with the bias, about 162 KB: one block an SM).
 //   The backward recomputes P from lse (FlashAttention-2 order, one 64-key
 //   tile a block, 16 keys a warp), keeps dK and dV in registers, stages dS^T
 //   in shared memory as bf16 and forms dq = c (dS K + Bm E_band) from it (Bm
 //   the skewed dS), sent with 4-float atomics. dE_band = c Bm^T Q: each warp
 //   keeps the 16 band rows it owns in registers; a q-tile's low rows are
 //   the next q-tile's high rows of the same warp, so each dE row leaves
-//   once, as 4-float atomics, when no later q-tile reaches it.
-// * float32, head_dim 16: the scalar kernels below (flash_forward_kernel,
-//   flash_backward_kernel; the f32 parity tests and f32 training). One
-//   thread per row of a 64-row tile, float32 FMAs on tiles staged in shared
-//   memory (rows padded to D+4 floats so that the per-thread rows of the
-//   relative band are read as conflict-free 16-byte loads); bound by issue
-//   rate, far above the card's memory bound (see PERF.md).
-//   - Forward, grid (S/64, BH): thread i keeps q_i, the running max, sum
-//     and output row in registers and walks the k-tiles at or before the
-//     diagonal (online softmax). The relative band a tile needs is 128 rows
-//     of E, staged beside the K and V tiles; element (i, j) reads band row
-//     63-i+j.
-//   - Backward, grid (S/64, BH), FlashAttention-2 order: thread j owns key j
-//     of one k-tile (dK, dV in registers) and walks the q-tiles at or after
-//     the diagonal, recomputing p from lse. ds goes to shared memory; then
-//     thread i forms its dq row and adds it to dq with float32 atomics, and
-//     the band gradient (dE rows) collects in two 64-row shared buffers that
-//     are flushed to dE with atomics once no later q-tile can touch them.
+//   once, as 4-float atomics, when no later q-tile reaches it. At D=128 the
+//   accumulators of dK, dV, dE and dq (4 x 64 floats a thread) exceed the
+//   255 registers, so two warps share a key group, each owning half of the
+//   columns (bwd_split; 8 warps a block).
+// * float32: the scalar kernels below (flash_forward_kernel,
+//   flash_backward_kernel; the f32 parity tests and f32 training). A row of
+//   a 64-row tile is split over D/16 neighbouring threads of a warp, 16
+//   columns each (flash_row_threads; one thread at D=16), which sum their
+//   partial dot products with shuffles: the registers a thread holds do not
+//   grow with D. float32 FMAs on tiles staged in shared memory (rows padded
+//   to D+4 floats so that the per-thread rows of the relative band are read
+//   as conflict-free 16-byte loads); bound by issue rate, far above the
+//   card's memory bound (see PERF.md).
+//   - Forward, grid (S/64, BH): the threads of row i keep their slice of
+//     q_i and of the output row, and the running max and sum, in registers
+//     and walk the k-tiles at or before the diagonal (online softmax). The
+//     relative band a tile needs is 128 rows of E, staged beside the K and
+//     V tiles; element (i, j) reads band row 63-i+j.
+//   - Backward, grid (S/64, BH), FlashAttention-2 order: the threads of key
+//     j own its slices of k, v, dK and dV in registers and walk the q-tiles
+//     at or after the diagonal, recomputing p from lse. ds goes to shared
+//     memory; then the threads of query row i form their slice of its dq row
+//     and add it to dq with float32 atomics, and those of band rows m and
+//     m + 64 their slices of dE: the hi row leaves with atomics (no later
+//     q-tile reaches it), the lo row is carried in registers, since it is
+//     the same E row as the next q-tile's hi row m + 64.
+//   At D=128 the shared memory of the backward is about 182 KB.
 //
 // Blocks of different (b, k-tile) share dq and dE rows, which the TPU
 // accumulated in place only because its grid ran in order; the atomics make
@@ -139,11 +151,27 @@ __device__ __forceinline__ float keep_multiplier(const Args& a, unsigned seed, i
   return word(r, kpos & 3) >= a.threshold ? a.keep_scale : 0.f;
 }
 
+// The float32 kernels split each row's D columns over L = D / kSlice
+// neighbouring threads of a warp, kSlice columns each (flash_row_threads).
+constexpr int kSlice = 16;
+
 template <int D>
-__device__ __forceinline__ float dot_reg(const float (&x)[D], const float* row) {
+__host__ __device__ constexpr int flash_row_threads() {
+  return D / kSlice;
+}
+
+// The sum of x over the L neighbouring lanes that share a row.
+template <int L>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float dot_reg(const float (&x)[kSlice], const float* row) {
   float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < kSlice; d += 4) {
     const float4 y = *reinterpret_cast<const float4*>(row + d);
     acc = fmaf(x[d], y.x, acc);
     acc = fmaf(x[d + 1], y.y, acc);
@@ -153,11 +181,10 @@ __device__ __forceinline__ float dot_reg(const float (&x)[D], const float* row) 
   return acc;
 }
 
-template <int D>
 __device__ __forceinline__ float dot_smem(const float* x, const float* row) {
   float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < kSlice; d += 4) {
     const float4 a = *reinterpret_cast<const float4*>(x + d);
     const float4 b = *reinterpret_cast<const float4*>(row + d);
     acc = fmaf(a.x, b.x, acc);
@@ -168,10 +195,9 @@ __device__ __forceinline__ float dot_smem(const float* x, const float* row) {
   return acc;
 }
 
-template <int D>
-__device__ __forceinline__ void axpy(float (&acc)[D], float w, const float* row) {
+__device__ __forceinline__ void axpy(float (&acc)[kSlice], float w, const float* row) {
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < kSlice; d += 4) {
     const float4 y = *reinterpret_cast<const float4*>(row + d);
     acc[d] = fmaf(w, y.x, acc[d]);
     acc[d + 1] = fmaf(w, y.y, acc[d + 1]);
@@ -202,8 +228,8 @@ __device__ __forceinline__ void load_band(float* dst, const float* e_head, int f
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
-  constexpr int P = D + 4;
+__global__ void __launch_bounds__(kBlock * flash_row_threads<D>()) flash_forward_kernel(const Args a) {
+  constexpr int P = D + 4, L = flash_row_threads<D>();
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
   float* vs = ks + kBlock * P;
@@ -212,7 +238,8 @@ __global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
   const int nb = a.seq / kBlock;
   const int ib = nb - 1 - (int)blockIdx.x;  // the longest rows start first
   const int bh = blockIdx.y, h = bh % a.heads;
-  const int i = threadIdx.x, qpos = ib * kBlock + i;
+  // Row i of the tile, columns [col, col + kSlice) of it.
+  const int i = threadIdx.x / L, col = (threadIdx.x % L) * kSlice, qpos = ib * kBlock + i;
   const size_t base = (size_t)bh * a.seq * D;
   const float* q = static_cast<const float*>(a.q) + base;
   const float* k = static_cast<const float*>(a.k) + base;
@@ -221,10 +248,10 @@ __global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
       a.use_rel ? static_cast<const float*>(a.e) + (size_t)h * a.window * D : nullptr;
   const unsigned seed = a.dropout ? (unsigned)*a.seed : 0u;
 
-  float qr[D], acc[D];
+  float qr[kSlice], acc[kSlice];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = q[(size_t)qpos * D + d];
+  for (int d = 0; d < kSlice; ++d) {
+    qr[d] = q[(size_t)qpos * D + col + d];
     acc[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -240,9 +267,9 @@ __global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
     float tile_max = kNegInf;
 #pragma unroll
     for (int j = 0; j < kBlock; ++j) {
-      float x = dot_reg<D>(qr, ks + j * P);
-      if (a.use_rel) x += dot_reg<D>(qr, es + (kBlock - 1 - i + j) * P);
-      x *= a.scale;
+      float x = dot_reg(qr, ks + j * P + col);
+      if (a.use_rel) x += dot_reg(qr, es + (kBlock - 1 - i + j) * P + col);
+      x = row_sum<L>(x) * a.scale;
       if (jb == ib && j > i) x = kNegInf;
       s[j] = x;
       tile_max = fmaxf(tile_max, x);
@@ -251,7 +278,7 @@ __global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
     const float correction = expf(m - m_new);
     l *= correction;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= correction;
+    for (int d = 0; d < kSlice; ++d) acc[d] *= correction;
 #pragma unroll
     for (int j0 = 0; j0 < kBlock; j0 += 4) {
       uint4 bits = make_uint4(0u, 0u, 0u, 0u);
@@ -264,22 +291,22 @@ __global__ void __launch_bounds__(kBlock) flash_forward_kernel(const Args a) {
         float p = expf(s[j0 + c] - m_new);
         l += p;
         if (a.dropout) p *= word(bits, c) >= a.threshold ? a.keep_scale : 0.f;
-        axpy<D>(acc, p, vs + (j0 + c) * P);
+        axpy(acc, p, vs + (j0 + c) * P + col);
       }
     }
     m = m_new;
   }
 
-  float* out = static_cast<float*>(a.out) + base + (size_t)qpos * D;
+  float* out = static_cast<float*>(a.out) + base + (size_t)qpos * D + col;
   const float inv_l = 1.f / l;
 #pragma unroll
-  for (int d = 0; d < D; ++d) out[d] = acc[d] * inv_l;
-  a.lse[(size_t)bh * a.seq + qpos] = m + logf(l);
+  for (int d = 0; d < kSlice; ++d) out[d] = acc[d] * inv_l;
+  if (col == 0) a.lse[(size_t)bh * a.seq + qpos] = m + logf(l);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBlock) flash_backward_kernel(const Args a) {
-  constexpr int P = D + 4;
+__global__ void __launch_bounds__(kBlock * flash_row_threads<D>()) flash_backward_kernel(const Args a) {
+  constexpr int P = D + 4, L = flash_row_threads<D>();
   constexpr int DS = kBlock + 1;  // ds pitch: row and column reads conflict-free
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
@@ -289,12 +316,13 @@ __global__ void __launch_bounds__(kBlock) flash_backward_kernel(const Args a) {
   float* ds = es + kBand * P;
   float* lse_s = ds + kBlock * DS;
   float* delta_s = lse_s + kBlock;
-  float* seg = delta_s + kBlock;  // two 64-row dE buffers
 
   const int nb = a.seq / kBlock;
   const int jb = blockIdx.x;  // the longest columns start first
   const int bh = blockIdx.y, h = bh % a.heads;
-  const int tid = threadIdx.x, kpos = jb * kBlock + tid;
+  // Row r of the tile (key r in phase 1, query r in phase 2, band rows r and
+  // r + 64 in phase 3), columns [col, col + kSlice) of it.
+  const int tid = threadIdx.x, r = tid / L, col = (tid % L) * kSlice, kpos = jb * kBlock + r;
   const int W = a.window;
   const size_t base = (size_t)bh * a.seq * D;
   const float* q = static_cast<const float*>(a.q) + base;
@@ -305,36 +333,40 @@ __global__ void __launch_bounds__(kBlock) flash_backward_kernel(const Args a) {
   float* de_head = a.use_rel ? a.de + (size_t)h * W * D : nullptr;
   const unsigned seed = a.dropout ? (unsigned)*a.seed : 0u;
 
-  float kr[D], vr[D], dk[D], dv[D];
+  // carry: dE of band row r of the lo half (E row W - 64 - 64t + r), which
+  // is band row r + 64 of the hi half of the next q-tile.
+  float kr[kSlice], vr[kSlice], dk[kSlice], dv[kSlice], carry[kSlice];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = k[(size_t)kpos * D + d];
-    vr[d] = v[(size_t)kpos * D + d];
+  for (int d = 0; d < kSlice; ++d) {
+    kr[d] = k[(size_t)kpos * D + col + d];
+    vr[d] = v[(size_t)kpos * D + col + d];
     dk[d] = 0.f;
     dv[d] = 0.f;
+    carry[d] = 0.f;
   }
   load_tile<D>(ks, k + (size_t)jb * kBlock * D, kBlock);
-  for (int idx = tid; idx < 2 * kBlock * D; idx += kBlock) seg[idx] = 0.f;
 
   for (int ib = jb; ib < nb; ++ib) {
     const int t = ib - jb;
     __syncthreads();  // the previous q-tile is consumed
     load_tile<D>(qs, q + (size_t)ib * kBlock * D, kBlock);
     load_tile<D>(dos, dout + (size_t)ib * kBlock * D, kBlock);
-    lse_s[tid] = a.lse[(size_t)bh * a.seq + ib * kBlock + tid];
-    delta_s[tid] = a.delta[(size_t)bh * a.seq + ib * kBlock + tid];
+    if (tid < kBlock) {
+      lse_s[tid] = a.lse[(size_t)bh * a.seq + ib * kBlock + tid];
+      delta_s[tid] = a.delta[(size_t)bh * a.seq + ib * kBlock + tid];
+    }
     if (a.use_rel) load_band<D>(es, e_head, W - kBlock - t * kBlock, W);
     __syncthreads();
 
-    // Phase 1, thread = key: p, ds, and this key's dK and dV.
+    // Phase 1, row = key: p, ds, and this key's dK and dV.
     for (int i = 0; i < kBlock; ++i) {
-      const float* qrow = qs + i * P;
-      const float* dorow = dos + i * P;
-      float x = dot_reg<D>(kr, qrow);
-      if (a.use_rel) x += dot_smem<D>(qrow, es + (kBlock - 1 - i + tid) * P);
-      x *= a.scale;
-      const float p = (t == 0 && tid > i) ? 0.f : expf(x - lse_s[i]);
-      float dp = dot_reg<D>(vr, dorow);
+      const float* qrow = qs + i * P + col;
+      const float* dorow = dos + i * P + col;
+      float x = dot_reg(kr, qrow);
+      if (a.use_rel) x += dot_smem(qrow, es + (kBlock - 1 - i + r) * P + col);
+      x = row_sum<L>(x) * a.scale;
+      const float p = (t == 0 && r > i) ? 0.f : expf(x - lse_s[i]);
+      float dp = row_sum<L>(dot_reg(vr, dorow));
       float p_dv = p;
       if (a.dropout) {
         const float mult = keep_multiplier(a, seed, bh, ib * kBlock + i, kpos);
@@ -342,71 +374,66 @@ __global__ void __launch_bounds__(kBlock) flash_backward_kernel(const Args a) {
         p_dv = p * mult;
       }
       const float dsv = p * (dp - delta_s[i]);
-      axpy<D>(dv, p_dv, dorow);
-      axpy<D>(dk, dsv, qrow);
-      ds[i * DS + tid] = dsv;
+      axpy(dv, p_dv, dorow);
+      axpy(dk, dsv, qrow);
+      if (col == 0) ds[i * DS + r] = dsv;
     }
     __syncthreads();
 
-    // Phase 2, thread = query row: dq_i = scale * sum_j ds_ij (k_j + E_band[63-i+j]).
+    // Phase 2, row = query: dq_r = scale * sum_j ds_rj (k_j + E_band[63-r+j]).
     {
-      float g[D];
+      float g[kSlice];
 #pragma unroll
-      for (int d = 0; d < D; ++d) g[d] = 0.f;
+      for (int d = 0; d < kSlice; ++d) g[d] = 0.f;
       for (int j = 0; j < kBlock; ++j) {
-        const float w = ds[tid * DS + j];
-        axpy<D>(g, w, ks + j * P);
-        if (a.use_rel) axpy<D>(g, w, es + (kBlock - 1 - tid + j) * P);
+        const float w = ds[r * DS + j];
+        axpy(g, w, ks + j * P + col);
+        if (a.use_rel) axpy(g, w, es + (kBlock - 1 - r + j) * P + col);
       }
-      float* dq_row = a.dq + base + (size_t)(ib * kBlock + tid) * D;
+      float* dq_row = a.dq + base + (size_t)(ib * kBlock + r) * D + col;
 #pragma unroll
-      for (int d = 0; d < D; ++d) atomicAdd(dq_row + d, a.scale * g[d]);
+      for (int d = 0; d < kSlice; ++d) atomicAdd(dq_row + d, a.scale * g[d]);
     }
     if (a.use_rel) {
-      // Band row m = 63-i+j collects scale * sum ds_ij q_i. This tile's rows
-      // m < 64 ("lo", E rows W-64-64t+m) go to seg[t & 1]; rows m >= 64
-      // ("hi", E rows W-64t+m-64) are the previous tile's lo rows, in
-      // seg[(t+1) & 1]. Thread tid owns m = tid and m = tid + 64.
-      float* lo = seg + (t & 1) * kBlock * D;
-      float* hi = seg + ((t + 1) & 1) * kBlock * D;
+      // Band row m = 63-i+j collects scale * sum ds_ij q_i. Rows m >= 64
+      // ("hi", E rows W - 64t + m - 64) are complete after this q-tile: the
+      // hi row r + 64 plus the carried lo row r of the previous tile leaves
+      // now. Rows m < 64 ("lo", E rows W - 64 - 64t + m) are carried on.
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int mm = tid + half * kBlock;
-        float g[D];
+      for (int half = 1; half >= 0; --half) {
+        const int mm = r + half * kBlock;
+        float g[kSlice];
 #pragma unroll
-        for (int d = 0; d < D; ++d) g[d] = 0.f;
+        for (int d = 0; d < kSlice; ++d) g[d] = 0.f;
         const int i0 = max(0, kBlock - 1 - mm), i1 = min(kBlock - 1, 2 * kBlock - 2 - mm);
-        for (int i = i0; i <= i1; ++i) axpy<D>(g, ds[i * DS + mm - (kBlock - 1) + i], qs + i * P);
-        float* dst = (half ? hi : lo) + tid * D;
+        for (int i = i0; i <= i1; ++i) axpy(g, ds[i * DS + mm - (kBlock - 1) + i], qs + i * P + col);
+        if (half) {
+          const int row = W - t * kBlock + r;  // none for the diagonal tile
+          if (row < W) {
+            float* dst = de_head + (size_t)row * D + col;
 #pragma unroll
-        for (int d = 0; d < D; ++d) dst[d] = fmaf(a.scale, g[d], dst[d]);
-      }
-      __syncthreads();
-      // No later q-tile reaches the hi rows: flush them and reuse the buffer
-      // as the next tile's lo rows.
-      const int first = W - t * kBlock;
-      for (int idx = tid; idx < kBlock * D; idx += kBlock) {
-        const int row = first + idx / D;
-        if (row < W) atomicAdd(de_head + (size_t)row * D + idx % D, hi[idx]);
-        hi[idx] = 0.f;
+            for (int d = 0; d < kSlice; ++d) atomicAdd(dst + d, fmaf(a.scale, g[d], carry[d]));
+          }
+        } else {
+#pragma unroll
+          for (int d = 0; d < kSlice; ++d) carry[d] = a.scale * g[d];
+        }
       }
     }
   }
   if (a.use_rel) {
-    __syncthreads();
-    const int t_last = nb - 1 - jb;
-    const float* lo = seg + (t_last & 1) * kBlock * D;
-    const int first = W - kBlock - t_last * kBlock;
-    for (int idx = tid; idx < kBlock * D; idx += kBlock) {
-      const int row = first + idx / D;
-      if (row >= 0 && row < W) atomicAdd(de_head + (size_t)row * D + idx % D, lo[idx]);
+    const int row = W - kBlock - (nb - 1 - jb) * kBlock + r;
+    if (row >= 0 && row < W) {
+      float* dst = de_head + (size_t)row * D + col;
+#pragma unroll
+      for (int d = 0; d < kSlice; ++d) atomicAdd(dst + d, carry[d]);
     }
   }
 
-  float* dk_out = static_cast<float*>(a.dk) + base + (size_t)kpos * D;
-  float* dv_out = static_cast<float*>(a.dv) + base + (size_t)kpos * D;
+  float* dk_out = static_cast<float*>(a.dk) + base + (size_t)kpos * D + col;
+  float* dv_out = static_cast<float*>(a.dv) + base + (size_t)kpos * D + col;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < kSlice; ++d) {
     dk_out[d] = a.scale * dk[d];
     dv_out[d] = dv[d];
   }
@@ -417,7 +444,7 @@ template <int D> constexpr size_t forward_smem() {
 }
 template <int D> constexpr size_t backward_smem() {
   return sizeof(float) * ((size_t)(3 * kBlock + kBand) * (D + 4) + kBlock * (kBlock + 1) +
-                          2 * kBlock + 2 * kBlock * D);
+                          2 * kBlock);
 }
 
 // The bf16 tensor-core kernels; they share Args, the constants and Philox
@@ -435,43 +462,46 @@ int launch(K kernel, int threads, size_t smem, const Args& a, cudaStream_t strea
 }
 
 // The instances built, one per (route, head_dim) of
-// ops/flash_attention.py::VARIANTS, which picks the route; any other
-// (route, head_dim) is refused.
-constexpr int kScalarHeadDim = 16;
+// ops/flash_attention.py::VARIANTS (head_dim 16, 32, 64 and 128 on each
+// route; the wrapper pads any other head_dim up to the next of them); any
+// other head_dim is refused.
+template <int D>
+int forward_at(int mma, const Args& a, cudaStream_t stream) {
+  if (mma) {
+    return launch(flash_forward_mma_kernel<D>, kMmaThreads, forward_mma_smem<D>(a.use_rel), a,
+                  stream);
+  }
+  return launch(flash_forward_kernel<D>, kBlock * flash_row_threads<D>(), forward_smem<D>(), a,
+                stream);
+}
 
-int forward(int mma, int depth, const Args& a, cudaStream_t stream) {
-  if (!mma) {
-    if (depth != kScalarHeadDim) return (int)cudaErrorInvalidValue;
-    return launch(flash_forward_kernel<kScalarHeadDim>, kBlock, forward_smem<kScalarHeadDim>(),
+template <int D>
+int backward_at(int mma, const Args& a, cudaStream_t stream) {
+  if (mma) {
+    return launch(flash_backward_mma_kernel<D>, bwd_threads<D>(), backward_mma_smem<D>(a.use_rel),
                   a, stream);
   }
+  return launch(flash_backward_kernel<D>, kBlock * flash_row_threads<D>(), backward_smem<D>(), a,
+                stream);
+}
+
+int forward(int mma, int depth, const Args& a, cudaStream_t stream) {
   switch (depth) {
-    case 16:
-      return launch(flash_forward_mma_kernel<16>, kMmaThreads,
-                    forward_mma_smem<16>(a.use_rel), a, stream);
-    case 64:
-      return launch(flash_forward_mma_kernel<64>, kMmaThreads,
-                    forward_mma_smem<64>(a.use_rel), a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return forward_at<16>(mma, a, stream);
+    case 32: return forward_at<32>(mma, a, stream);
+    case 64: return forward_at<64>(mma, a, stream);
+    case 128: return forward_at<128>(mma, a, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int backward(int mma, int depth, const Args& a, cudaStream_t stream) {
-  if (!mma) {
-    if (depth != kScalarHeadDim) return (int)cudaErrorInvalidValue;
-    return launch(flash_backward_kernel<kScalarHeadDim>, kBlock,
-                  backward_smem<kScalarHeadDim>(), a, stream);
-  }
   switch (depth) {
-    case 16:
-      return launch(flash_backward_mma_kernel<16>, kMmaThreads,
-                    backward_mma_smem<16>(a.use_rel), a, stream);
-    case 64:
-      return launch(flash_backward_mma_kernel<64>, kMmaThreads,
-                    backward_mma_smem<64>(a.use_rel), a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return backward_at<16>(mma, a, stream);
+    case 32: return backward_at<32>(mma, a, stream);
+    case 64: return backward_at<64>(mma, a, stream);
+    case 128: return backward_at<128>(mma, a, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

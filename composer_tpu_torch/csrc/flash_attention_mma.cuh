@@ -1,11 +1,12 @@
 // flash_attention_mma.cuh: the bf16 tensor-core flash attention kernels,
 // forward (flash_forward_mma_kernel, replacing pallas_attention.py
 // _flash_kernel) and backward (flash_backward_mma_kernel, replacing
-// _flash_bwd_kernel), for head_dim D = 16 and 64. flash_attention.cu's header
-// states the contract and the design; this file is included by it, inside its
-// namespace, after Args, kBlock, kBand, kNegInf and philox4x32_10.
+// _flash_bwd_kernel), for head_dim D = 16, 32, 64 and 128. flash_attention.cu's
+// header states the contract and the design; this file is included by it,
+// inside its namespace, after Args, kBlock, kBand, kNegInf and philox4x32_10.
 //
-// A block is 4 warps over one 64-row tile. Fragment names follow the PTX
+// A block is 4 warps over one 64-row tile (the backward at D=128: 8, two
+// warps a key group, bwd_split). Fragment names follow the PTX
 // m16n8k16 layouts: lane = 4 g + t; an A fragment holds rows g and g+8,
 // columns 2t, 2t+1 (and +8); a C fragment rows g and g+8, columns 2t, 2t+1
 // of an 8-column tile.
@@ -96,20 +97,22 @@ __device__ __forceinline__ int at_off(int lane, int pitch, int k0, int m0) {
 
 // Rows [first, first+rows) of a [limit, D] bf16 matrix into shared memory at
 // pitch D+8 (16-byte rows land on distinct banks for ldmatrix), zeros for
-// rows outside [0, limit). Issued with cp.async, not committed.
-template <int D>
+// rows outside [0, limit), by the block's Threads threads. Issued with
+// cp.async, not committed.
+template <int D, int Threads = kMmaThreads>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int rows, int first,
                                            int limit) {
   constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kMmaThreads) {
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += Threads) {
     const int r = idx / kChunks, c = idx % kChunks, row = first + r;
     const bool valid = row >= 0 && row < limit;
     cp_async16(dst + r * (D + 8) + c * 8, src + (size_t)(valid ? row : 0) * D + c * 8, valid);
   }
 }
 
+template <int Threads = kMmaThreads>
 __device__ __forceinline__ void stage_floats(float* dst, const float* src, int count) {
-  for (int idx = threadIdx.x; idx < count / 4; idx += kMmaThreads) {
+  for (int idx = threadIdx.x; idx < count / 4; idx += Threads) {
     cp_async16(dst + 4 * idx, src + 4 * idx, true);
   }
 }
@@ -129,13 +132,16 @@ __device__ __forceinline__ void atomic_add4(float* p, float4 v) {
 
 // q.E of one warp's 16 rows (A fragments qa) against the 80 band rows
 // [e_row0, e_row0+80) of the staged band et, into the warp's staging rows
-// qe (16 x kBandSlice floats at pitch kQePitch, unskewed).
+// qe (16 x kBandSlice floats at pitch kQePitch, unskewed); only the 16-row
+// groups [np0, np1) of the 5 (the D=128 backward splits them over two warps).
 template <int D>
 __device__ __forceinline__ void band_product(float* qe, const unsigned (&qa)[D / 16][4],
-                                             const bf16* et, int e_row0, int lane) {
+                                             const bf16* et, int e_row0, int lane, int np0 = 0,
+                                             int np1 = kBandSlice / 16) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int np = 0; np < kBandSlice / 16; ++np) {
+    if (np < np0 || np >= np1) continue;
     float acc[2][4] = {};
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
@@ -372,25 +378,36 @@ __device__ __forceinline__ unsigned ds_pair(const bf16* ds, int j, int i, int dj
   return lo | (hi << 16);
 }
 
+// The backward's warps a key group: at D=128 two, each owning half of the
+// columns of dK, dV, dE and dq (D=64's register budget); otherwise one.
+template <int D>
+__host__ __device__ constexpr int bwd_split() {
+  return D > 64 ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr int bwd_threads() {
+  return kMmaThreads * bwd_split<D>();
+}
+
 template <int D>
 size_t backward_mma_smem(bool use_rel) {
   return sizeof(bf16) * ((size_t)(6 * kBlock + (use_rel ? kBand : 0)) * (D + 8) +
                          kBlock * kDsPitch) +
-         sizeof(float) * ((size_t)4 * kBlock + kMmaWarps * 2 * kDropWords +
+         sizeof(float) * ((size_t)4 * kBlock + kMmaWarps * bwd_split<D>() * 2 * kDropWords +
                           (use_rel ? kMmaWarps * 16 * kQePitch : 0));
 }
 
-// Adds c times a 16 x D C-fragment tile (rows g and g+8 of this lane, at
-// row pitch D) to global float32 sums at dst: lanes t and t^1 swap halves
-// so that each issues one 4-float atomic per 8 columns.
-template <int D>
-__device__ __forceinline__ void atomic_add_tile(float* dst, const float (&acc)[D / 8][4], float c,
-                                                int lane) {
+// Adds c times a 16 x (8 NTile) C-fragment tile (rows g and g+8 of this lane)
+// to global float32 sums at dst, rows pitch floats apart: lanes t and t^1
+// swap halves so that each issues one 4-float atomic per 8 columns.
+template <int NTile>
+__device__ __forceinline__ void atomic_add_tile(float* dst, const float (&acc)[NTile][4], float c,
+                                                int lane, int pitch) {
   const int g = lane >> 2, t = lane & 3;
   const bool odd = t & 1;
-  float* row = dst + (size_t)(odd ? g + 8 : g) * D + 2 * (t & ~1);
+  float* row = dst + (size_t)(odd ? g + 8 : g) * pitch + 2 * (t & ~1);
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
+  for (int nt = 0; nt < NTile; ++nt) {
     const float r0 = __shfl_xor_sync(0xffffffffu, odd ? acc[nt][0] : acc[nt][2], 1);
     const float r1 = __shfl_xor_sync(0xffffffffu, odd ? acc[nt][1] : acc[nt][3], 1);
     const float4 v = odd ? make_float4(c * r0, c * r1, c * acc[nt][2], c * acc[nt][3])
@@ -399,12 +416,16 @@ __device__ __forceinline__ void atomic_add_tile(float* dst, const float (&acc)[D
   }
 }
 
-// At head_dim 16, three blocks an SM (registers capped at 170); at 64 the
-// accumulators take what a thread can have, and two blocks fit.
+// At head_dim 16, three blocks an SM (registers capped at 170); from 32 on the
+// accumulators take what a thread can have. At D=128 (bwd_split) the two warps
+// of a key group both form its S^T and dS^T over the full depth (the price of
+// the split: QK^T and dO V^T twice), split the band's q.E between them, and
+// each keeps and writes only its half of the columns of dK, dV, dq and dE.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
+__global__ void __launch_bounds__(bwd_threads<D>(), D == 16 ? 3 : 1)
     flash_backward_mma_kernel(const Args a) {
-  constexpr int P = D + 8, KS = D / 16, NT = D / 8;
+  constexpr int kSplit = bwd_split<D>(), kThreads = bwd_threads<D>();
+  constexpr int P = D + 8, KS = D / 16, DW = D / kSplit, NTW = DW / 8;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* k_s = reinterpret_cast<bf16*>(mma_smem);  // [64][P] this block's keys
   bf16* v_s = k_s + kBlock * P;                    // [64][P]
@@ -413,16 +434,20 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
   bf16* ds_s = do_s + 2 * kBlock * P;              // [64 keys][kDsPitch] dS^T
   float* lse_s = reinterpret_cast<float*>(ds_s + kBlock * kDsPitch);  // [2][64]
   float* delta_s = lse_s + 2 * kBlock;                                 // [2][64]
-  unsigned* drop_s = reinterpret_cast<unsigned*>(delta_s + 2 * kBlock);  // [warp][2][kDropWords]
+  // [warp][2][kDropWords]
+  unsigned* drop_s = reinterpret_cast<unsigned*>(delta_s + 2 * kBlock);
   // With the bias only: the band of the current q-tile and the staged q.E.
-  bf16* e_s = reinterpret_cast<bf16*>(drop_s + kMmaWarps * 2 * kDropWords);  // [128][P]
-  float* qe_s = reinterpret_cast<float*>(e_s + kBand * P);    // [warp][16][kQePitch]
+  bf16* e_s = reinterpret_cast<bf16*>(drop_s + kMmaWarps * kSplit * 2 * kDropWords);  // [128][P]
+  float* qe_s = reinterpret_cast<float*>(e_s + kBand * P);  // [key group][16][kQePitch]
 
   const int nb = a.seq / kBlock;
   const int jb = blockIdx.x;  // the longest columns start first
   const int bh = blockIdx.y, h = bh % a.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int w16 = 16 * warp;  // the warp's 16 keys (phase 2), queries (3a), band rows (3b)
+  // The warp's group of 16 keys (phase 2), queries (3a) and band rows (3b),
+  // and its columns [cd, cd + DW) of dK, dV, dq and dE.
+  const int kw = warp % kMmaWarps, dh = warp / kMmaWarps, cd = dh * DW;
+  const int w16 = 16 * kw;
   const int W = a.window;
   const size_t base = (size_t)bh * a.seq * D;
   const bf16* q = static_cast<const bf16*>(a.q) + base;
@@ -435,30 +460,30 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
   const float* delta = a.delta + (size_t)bh * a.seq;
   const unsigned seed = a.dropout ? (unsigned)*a.seed : 0u;
   const float c2 = a.scale * kLog2e;
-  float* qe_w = qe_s + warp * 16 * kQePitch;
+  float* qe_w = qe_s + kw * 16 * kQePitch;
   unsigned* drop_w = drop_s + warp * 2 * kDropWords;
 
   auto stage = [&](int ib, int buf) {
-    stage_rows<D>(q_s + buf * kBlock * P, q, kBlock, ib * kBlock, a.seq);
-    stage_rows<D>(do_s + buf * kBlock * P, dout, kBlock, ib * kBlock, a.seq);
-    stage_floats(lse_s + buf * kBlock, lse + ib * kBlock, kBlock);
-    stage_floats(delta_s + buf * kBlock, delta + ib * kBlock, kBlock);
+    stage_rows<D, kThreads>(q_s + buf * kBlock * P, q, kBlock, ib * kBlock, a.seq);
+    stage_rows<D, kThreads>(do_s + buf * kBlock * P, dout, kBlock, ib * kBlock, a.seq);
+    stage_floats<kThreads>(lse_s + buf * kBlock, lse + ib * kBlock, kBlock);
+    stage_floats<kThreads>(delta_s + buf * kBlock, delta + ib * kBlock, kBlock);
   };
   // The band of q-tile ib: E rows W - 64 - 64 (ib - jb) + [0, 128).
   auto stage_band = [&](int ib) {
-    stage_rows<D>(e_s, e_head, kBand, W - kBlock - (ib - jb) * kBlock, W);
+    stage_rows<D, kThreads>(e_s, e_head, kBand, W - kBlock - (ib - jb) * kBlock, W);
   };
-  stage_rows<D>(k_s, k, kBlock, jb * kBlock, a.seq);
-  stage_rows<D>(v_s, v, kBlock, jb * kBlock, a.seq);
+  stage_rows<D, kThreads>(k_s, k, kBlock, jb * kBlock, a.seq);
+  stage_rows<D, kThreads>(v_s, v, kBlock, jb * kBlock, a.seq);
   stage(jb, 0);
   if (a.use_rel) stage_band(jb);
   cp_async_commit();
 
-  float dk_acc[NT][4] = {}, dv_acc[NT][4] = {};  // this warp's 16 keys x D
+  float dk_acc[NTW][4] = {}, dv_acc[NTW][4] = {};  // this warp's 16 keys x DW columns
   // dE of this warp's 16 band rows of the lo half (rows m = w16 + (g, g+8)
   // of the band, E rows W - 64 - 64tt + m), carried to the next q-tile,
   // where the same E rows are band rows m + 64 of the warp's hi tile.
-  float de_acc[NT][4] = {};
+  float de_acc[NTW][4] = {};
 
   for (int ib = jb; ib < nb; ++ib) {
     const int tt = ib - jb, buf = tt & 1;
@@ -473,13 +498,16 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
     const float* lse_t = lse_s + buf * kBlock;
     const float* delta_t = delta_s + buf * kBlock;
 
-    // 1. q.E of this warp's 16 queries against their 80 band rows, as in
-    //    the forward; phase 2 reads it transposed, so every warp's is needed.
+    // 1. q.E of this key group's 16 queries against their 80 band rows, as
+    //    in the forward (at D=128 the group's two warps take 3 and 2 of the
+    //    5 16-row groups); phase 2 reads it transposed, so every group's is
+    //    needed.
     if (a.use_rel) {
       unsigned qa[KS][4];
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) ldsm_x4(qa[ks], qt + a_off(lane, P, w16, 16 * ks));
-      band_product<D>(qe_w, qa, e_s, 48 - w16, lane);
+      band_product<D>(qe_w, qa, e_s, 48 - w16, lane, 3 * dh,
+                      (kSplit == 1 || dh) ? kBandSlice / 16 : 3);
       __syncthreads();
     }
 
@@ -539,8 +567,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
         st[nt][c] = p * mult;                            // (P M)^T
       }
     }
-    // dV += (P M)^T dO, dK += dS^T Q: A from the accumulators, B = dO, Q
-    // (depth = query).
+    // dV += (P M)^T dO, dK += dS^T Q over this warp's columns: A from the
+    // accumulators, B = dO, Q (depth = query).
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       const unsigned pa[4] = {pack_bf16(st[2 * kc][0], st[2 * kc][1]),
@@ -552,37 +580,39 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
                               pack_bf16(dpt[2 * kc + 1][0], dpt[2 * kc + 1][1]),
                               pack_bf16(dpt[2 * kc + 1][2], dpt[2 * kc + 1][3])};
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
+      for (int np = 0; np < NTW / 2; ++np) {
         unsigned b[4];
-        ldsm_x4_t(b, dot + bt_off(lane, P, 16 * kc, 16 * np));
+        ldsm_x4_t(b, dot + bt_off(lane, P, 16 * kc, cd + 16 * np));
         mma16816(dv_acc[2 * np], pa, b[0], b[1]);
         mma16816(dv_acc[2 * np + 1], pa, b[2], b[3]);
-        ldsm_x4_t(b, qt + bt_off(lane, P, 16 * kc, 16 * np));
+        ldsm_x4_t(b, qt + bt_off(lane, P, 16 * kc, cd + 16 * np));
         mma16816(dk_acc[2 * np], da, b[0], b[1]);
         mma16816(dk_acc[2 * np + 1], da, b[2], b[3]);
       }
-      // Row j of dS^T in shared memory for phase 3.
-      const int i = 16 * kc + 2 * t;
-      *reinterpret_cast<unsigned*>(ds_s + (w16 + g) * kDsPitch + i) = da[0];
-      *reinterpret_cast<unsigned*>(ds_s + (w16 + g + 8) * kDsPitch + i) = da[1];
-      *reinterpret_cast<unsigned*>(ds_s + (w16 + g) * kDsPitch + i + 8) = da[2];
-      *reinterpret_cast<unsigned*>(ds_s + (w16 + g + 8) * kDsPitch + i + 8) = da[3];
+      // Row j of dS^T in shared memory for phase 3 (one warp of the group).
+      if (dh == 0) {
+        const int i = 16 * kc + 2 * t;
+        *reinterpret_cast<unsigned*>(ds_s + (w16 + g) * kDsPitch + i) = da[0];
+        *reinterpret_cast<unsigned*>(ds_s + (w16 + g + 8) * kDsPitch + i) = da[1];
+        *reinterpret_cast<unsigned*>(ds_s + (w16 + g) * kDsPitch + i + 8) = da[2];
+        *reinterpret_cast<unsigned*>(ds_s + (w16 + g + 8) * kDsPitch + i + 8) = da[3];
+      }
     }
     __syncthreads();
 
-    // 3a. dq of this warp's queries i = w16 + (g, g+8): c (dS K + Bm E_band),
-    //     Bm[i, m] = dS[i, m - 63 + i] over the warp's 80 band rows
-    //     m = 48 - w16 + c, i.e. key j = c - 15 + (i - w16).
+    // 3a. dq of this warp's queries i = w16 + (g, g+8), its columns:
+    //     c (dS K + Bm E_band), Bm[i, m] = dS[i, m - 63 + i] over the warp's
+    //     80 band rows m = 48 - w16 + c, i.e. key j = c - 15 + (i - w16).
     {
-      float dq_acc[NT][4] = {};
+      float dq_acc[NTW][4] = {};
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc) {
         unsigned da[4];
         ldsm_x4_t(da, ds_s + at_off(lane, kDsPitch, 16 * kc, w16));
 #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
+        for (int np = 0; np < NTW / 2; ++np) {
           unsigned b[4];
-          ldsm_x4_t(b, k_s + bt_off(lane, P, 16 * kc, 16 * np));
+          ldsm_x4_t(b, k_s + bt_off(lane, P, 16 * kc, cd + 16 * np));
           mma16816(dq_acc[2 * np], da, b[0], b[1]);
           mma16816(dq_acc[2 * np + 1], da, b[2], b[3]);
         }
@@ -595,20 +625,22 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
                                   ds_pair(ds_s, j + 8, i, 1, 0),
                                   ds_pair(ds_s, j + 16, i + 8, 1, 0)};
 #pragma unroll
-          for (int np = 0; np < NT / 2; ++np) {
+          for (int np = 0; np < NTW / 2; ++np) {
             unsigned b[4];
-            ldsm_x4_t(b, e_s + bt_off(lane, P, 48 - w16 + 16 * kc, 16 * np));
+            ldsm_x4_t(b, e_s + bt_off(lane, P, 48 - w16 + 16 * kc, cd + 16 * np));
             mma16816(dq_acc[2 * np], ba, b[0], b[1]);
             mma16816(dq_acc[2 * np + 1], ba, b[2], b[3]);
           }
         }
       }
-      atomic_add_tile<D>(a.dq + base + (size_t)(ib * kBlock + w16) * D, dq_acc, a.scale, lane);
+      atomic_add_tile<NTW>(a.dq + base + (size_t)(ib * kBlock + w16) * D + cd, dq_acc, a.scale,
+                           lane, D);
     }
 
-    // 3b. dE_band[m] += c sum_i Bm[i, m] q_i over 16-row tiles of band rows:
-    //     this warp's hi tile (m = 64 + w16 + .., the carried rows, complete
-    //     after this q-tile) and lo tile (m = w16 + .., carried on).
+    // 3b. dE_band[m] += c sum_i Bm[i, m] q_i over 16-row tiles of band rows,
+    //     this warp's columns: its hi tile (m = 64 + w16 + .., the carried
+    //     rows, complete after this q-tile) and lo tile (m = w16 + ..,
+    //     carried on).
     if (a.use_rel) {
       __syncthreads();  // every warp has read the band: stage the next one
       if (ib + 1 < nb) {
@@ -617,7 +649,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
       }
 #pragma unroll
       for (int half = 1; half >= 0; --half) {
-        const int mt = warp + 4 * half, m0 = 16 * mt;
+        const int mt = kw + 4 * half, m0 = 16 * mt;
         // Queries that reach this tile: i in [48 - m0, 126 - m0].
         const int kc0 = max(0, 3 - mt), kc1 = min(3, 7 - mt);
         for (int kc = kc0; kc <= kc1; ++kc) {
@@ -628,9 +660,9 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
                                   ds_pair(ds_s, j + 8, i + 8, 1, 1),
                                   ds_pair(ds_s, j + 16, i + 8, 1, 1)};
 #pragma unroll
-          for (int np = 0; np < NT / 2; ++np) {
+          for (int np = 0; np < NTW / 2; ++np) {
             unsigned b[4];
-            ldsm_x4_t(b, qt + bt_off(lane, P, 16 * kc, 16 * np));
+            ldsm_x4_t(b, qt + bt_off(lane, P, 16 * kc, cd + 16 * np));
             mma16816(de_acc[2 * np], ba, b[0], b[1]);
             mma16816(de_acc[2 * np + 1], ba, b[2], b[3]);
           }
@@ -639,11 +671,11 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
           // No later q-tile reaches the hi rows (E rows W - 64tt + w16 + ..;
           // none exist for the diagonal tile, whose hi part is masked).
           if (tt > 0) {
-            atomic_add_tile<D>(de_head + (size_t)(W - tt * kBlock + w16) * D, de_acc, a.scale,
-                               lane);
+            atomic_add_tile<NTW>(de_head + (size_t)(W - tt * kBlock + w16) * D + cd, de_acc,
+                                 a.scale, lane, D);
           }
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
+          for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
             for (int c = 0; c < 4; ++c) de_acc[nt][c] = 0.f;
           }
@@ -653,14 +685,15 @@ __global__ void __launch_bounds__(kMmaThreads, D == 16 ? 3 : 1)
   }
   if (a.use_rel) {
     const int t_last = nb - 1 - jb;
-    atomic_add_tile<D>(de_head + (size_t)(W - kBlock - t_last * kBlock + w16) * D, de_acc,
-                       a.scale, lane);
+    atomic_add_tile<NTW>(de_head + (size_t)(W - kBlock - t_last * kBlock + w16) * D + cd, de_acc,
+                         a.scale, lane, D);
   }
 
-  bf16* dk_out = static_cast<bf16*>(a.dk) + base + (size_t)(jb * kBlock + w16 + g) * D + 2 * t;
-  bf16* dv_out = static_cast<bf16*>(a.dv) + base + (size_t)(jb * kBlock + w16 + g) * D + 2 * t;
+  const size_t out_row = (size_t)(jb * kBlock + w16 + g) * D + cd + 2 * t;
+  bf16* dk_out = static_cast<bf16*>(a.dk) + base + out_row;
+  bf16* dv_out = static_cast<bf16*>(a.dv) + base + out_row;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+  for (int nt = 0; nt < NTW; ++nt) {
     *reinterpret_cast<unsigned*>(dk_out + 8 * nt) =
         pack_bf16(a.scale * dk_acc[nt][0], a.scale * dk_acc[nt][1]);
     *reinterpret_cast<unsigned*>(dk_out + 8 * D + 8 * nt) =

@@ -40,19 +40,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _library_path(name: str, source: Path) -> Path:
+def _library_path(name: str, csrc: Path) -> Path:
     # The shared headers are part of every source's digest: an edited header
     # rebuilds the libraries that include it.
-    headers = b"".join(path.read_bytes() for path in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(source.read_bytes() + headers
+    headers = b"".join(path.read_bytes() for path in sorted(csrc.glob("*.cuh")))
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str = "decode_generate") -> Path:
-    """Compiles ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    source = CSRC / f"{name}.cu"
-    target = _library_path(name, source)
+def build(name: str = "decode_generate", csrc: Path | None = None) -> Path:
+    """Compiles ``<csrc>/<name>.cu`` (``csrc`` defaults to ``CSRC``) unless
+    an up-to-date library exists."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    source = csrc / f"{name}.cu"
+    target = _library_path(name, csrc)
     if target.exists():
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
         return target

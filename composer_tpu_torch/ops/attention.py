@@ -79,8 +79,9 @@ def relative_logits_decode(q: torch.Tensor, rel_embedding: torch.Tensor,
 
 def takes_flash_path(q, k, *, q_position=None, mask=None, use_pallas: bool = False) -> bool:
     """The routing rule: flash attention for square causal self-attention
-    with ``S % MIN_BLOCK == 0``. It does not look at head_dim: a CUDA tensor
-    whose head_dim the kernels are not built for raises in the wrapper."""
+    with ``S % MIN_BLOCK == 0``. It does not look at head_dim or dtype: on a
+    CUDA tensor the wrapper pads a head_dim up to 128 to the next built one
+    and raises for float16, float64 and head_dim above 128."""
     s_q, s_k = q.shape[2], k.shape[2]
     return (use_pallas and s_q == s_k and q_position is None and mask is None
             and s_q % MIN_BLOCK == 0)

@@ -7,11 +7,14 @@ replaced by the Hopper kernels of ``csrc/flash_attention.cu``; the file's
 header states what they compute and how. ``relative_flash_attention`` keeps
 the JAX signature and the ``[B, H, S, D]`` layout.
 
-Two routes, one fixed table (``kernel_variant``): bf16 at head_dim 16 and
-64 takes the tensor-core kernels (``csrc/flash_attention_mma.cuh``), the
-training path's type; float32 at head_dim 16 the scalar kernels, which the
-float32 parity tests and float32 training use. Every other (dtype,
-head_dim) raises.
+Two routes, one fixed table (``kernel_variant``), each built at head_dim
+16, 32, 64 and 128 (``BUILT_HEAD_DIMS``): bf16 takes the tensor-core
+kernels (``csrc/flash_attention_mma.cuh``), the training path's type;
+float32 the scalar kernels, which the float32 parity tests and float32
+training use. Any other head_dim up to 128 is zero-padded to the next built
+one (``padded_head_dim``, ``pad_head_dim``), as the JAX wrapper pads the
+depth to 128 lanes, with the softmax scale of the true depth. float16,
+float64 and head_dim above 128 raise (ROADMAP Queue 2 item 1b).
 
 Beside the kernels, in this module:
 
@@ -21,12 +24,14 @@ Beside the kernels, in this module:
   kernel and its plain version agree to summation order.
 * ``flash_attention_forward`` / ``flash_attention_backward``: the wrappers.
   A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-  (counted by ``(route, head_dim)`` in ``flash_attention_forward.launches``
-  and ``flash_attention_backward.launches``) or raises.
+  (counted by ``(route, built head_dim)`` in
+  ``flash_attention_forward.launches`` and
+  ``flash_attention_backward.launches``) or raises.
 
-What the JAX module does for Mosaic and the port does not: padding head_dim
-to 128 lanes, the block-size policy, the per-row scalars padded to 8
-sublanes, the lane shears. The TPU's dropout bits (``pltpu.prng_random_bits``
+What the JAX module does for Mosaic and the port does not: padding every
+head_dim to 128 lanes (the port pads only to the next built width), the
+block-size policy, the per-row scalars padded to 8 sublanes, the lane
+shears. The TPU's dropout bits (``pltpu.prng_random_bits``
 keyed by tile) cannot be replayed; the port keys Philox4x32-10 by element.
 """
 
@@ -41,25 +46,51 @@ from composer_tpu_torch.ops.philox import philox4x32_10
 
 NEG_INF = -1e30
 KERNEL_BLOCK = 64  # rows per tile in the kernels; S must be a multiple
-# (dtype, head_dim) -> the kernels built for it: "mma" the bf16 tensor-core
-# pair, "scalar" the float32 one.
-KERNEL_VARIANTS = {
-    (torch.bfloat16, 16): "mma",
-    (torch.bfloat16, 64): "mma",
-    (torch.float32, 16): "scalar",
-}
+# The head_dims each route is built for; the wrappers pad any other up to
+# the next of them.
+BUILT_HEAD_DIMS = (16, 32, 64, 128)
+# dtype -> route: "mma" the bf16 tensor-core pair, "scalar" the float32 one.
+ROUTES = {torch.bfloat16: "mma", torch.float32: "scalar"}
+DTYPES = {route: dtype for dtype, route in ROUTES.items()}
+# (dtype, head_dim) -> the kernels built for it.
+KERNEL_VARIANTS = {(dtype, depth): route for dtype, route in ROUTES.items()
+                   for depth in BUILT_HEAD_DIMS}
+UNBUILT = "ROADMAP Queue 2 item 1b (flash kernels in float16, float64 and at head_dim > 128)"
 
 
 def kernel_variant(dtype, depth: int) -> str:
-    """The route (``"mma"`` or ``"scalar"``) of the kernels that take
+    """The route (``"mma"`` or ``"scalar"``) of the kernels built for
     ``dtype`` at ``depth``; ``ValueError`` naming what is built for anything
-    else."""
+    else (a head_dim between the built ones goes through
+    ``padded_head_dim`` first)."""
     route = KERNEL_VARIANTS.get((dtype, depth))
     if route is None:
-        built = ", ".join(f"{str(d)[6:]} x {n}" for d, n in KERNEL_VARIANTS)
-        raise ValueError(f"the flash kernels are built for (dtype x head_dim) {built}, "
-                         f"not {str(dtype)[6:]} x head_dim {depth}")
+        built = ", ".join(str(d)[6:] for d in ROUTES)
+        raise ValueError(f"the flash kernels are built for {built} at head_dim "
+                         f"{', '.join(map(str, BUILT_HEAD_DIMS))}, not {str(dtype)[6:]} x "
+                         f"head_dim {depth}: {UNBUILT}")
     return route
+
+
+def padded_head_dim(dtype, depth: int) -> int:
+    """The built head_dim the kernels run ``depth`` at: the smallest of
+    ``BUILT_HEAD_DIMS`` not below it. ``ValueError`` for a dtype without
+    kernels or a depth above 128."""
+    width = next((d for d in BUILT_HEAD_DIMS if d >= depth), None)
+    if dtype not in ROUTES or width is None or depth < 1:
+        kernel_variant(dtype, depth)  # raises, naming what is built
+    return width
+
+
+def pad_head_dim(width: int, *tensors):
+    """Each tensor (None passes through) zero-padded on its last axis to
+    ``width``. Zero columns of q, k and E add nothing to a score, and zero
+    columns of v give zero output columns, so the padded call's outputs
+    sliced back to the true depth are the unpadded call's, given the true
+    depth's softmax scale."""
+    return tuple(t if t is None or t.shape[-1] == width
+                 else torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+                 for t in tensors)
 
 
 # The keys of the wrappers' launch counts: (route, head_dim) of each kernel built.
@@ -109,7 +140,16 @@ def _seed_int(seed) -> int:
     return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
 
 
-def _scores(q, k, rel_embedding, scale: bool):
+def softmax_scale(scale, depth: int) -> float:
+    """The factor on the scores: a float as given (the padded kernels' call,
+    whose scale is that of the true depth); otherwise ``depth ** -0.5`` where
+    ``scale`` is true, 1 where it is false."""
+    if isinstance(scale, float):
+        return scale
+    return depth ** -0.5 if scale else 1.0
+
+
+def _scores(q, k, rel_embedding, scale):
     """Scaled, causally masked scores ``[B, H, S, S]`` in the compute type
     (float32 for float32 and bf16 inputs, float64 for float64)."""
     compute = torch.promote_types(q.dtype, torch.float32)
@@ -117,8 +157,9 @@ def _scores(q, k, rel_embedding, scale: bool):
     scores = qf @ kf.transpose(-1, -2)
     if rel_embedding is not None:
         scores = scores + relative_logits_full(qf, rel_embedding.to(q.dtype).to(compute))
-    if scale:
-        scores = scores * q.shape[-1] ** -0.5
+    factor = softmax_scale(scale, q.shape[-1])
+    if factor != 1.0:
+        scores = scores * factor
     seq = q.shape[2]
     causal = torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril()
     return scores.masked_fill(~causal, NEG_INF)
@@ -129,9 +170,10 @@ def _check_window(seq: int, rel_embedding):
         raise ValueError(f"sequence {seq} exceeds relative window {rel_embedding.shape[1]}")
 
 
-def flash_attention_reference(q, k, v, rel_embedding=None, *, scale: bool = True,
+def flash_attention_reference(q, k, v, rel_embedding=None, *, scale=True,
                               dropout_rate: float = 0.0, dropout_seed=None):
-    """Plain version of the forward kernel: ``(out, lse)``.
+    """Plain version of the forward kernel: ``(out, lse)``. ``scale``: True,
+    False or the factor itself (``softmax_scale``).
 
     ``out`` is ``[B, H, S, D]`` in q's dtype, ``lse`` the ``[B, H, S]``
     log-sum-exp of each row's scores in the compute type. Dropout multiplies
@@ -150,7 +192,7 @@ def flash_attention_reference(q, k, v, rel_embedding=None, *, scale: bool = True
 
 
 def flash_attention_backward_reference(q, k, v, rel_embedding, out, lse, dout, *,
-                                       scale: bool = True, dropout_rate: float = 0.0,
+                                       scale=True, dropout_rate: float = 0.0,
                                        dropout_seed=None):
     """Plain version of the backward kernel: ``(dq, dk, dv, dE)`` (dE is None
     without the relative table), from the forward's ``out`` and ``lse``.
@@ -175,7 +217,7 @@ def flash_attention_backward_reference(q, k, v, rel_embedding, out, lse, dout, *
         dp = dp * mult
         p_dv = p * mult
     ds = p * (dp - delta[..., None])
-    c = depth ** -0.5 if scale else 1.0
+    c = softmax_scale(scale, depth)
     dv = p_dv.transpose(-1, -2) @ dof
     dq = c * (ds @ kf)
     dk = c * (ds.transpose(-1, -2) @ qf)
@@ -197,8 +239,9 @@ def flash_attention_backward_reference(q, k, v, rel_embedding, out, lse, dout, *
 
 
 def _kernel_args(q, rel_embedding, dropout_rate: float, dropout_seed):
-    """Checks what the kernel takes; returns ``(variant, use_rel, seed
-    tensor, threshold, keep_scale, dropout flag)``."""
+    """Checks what the kernel takes (``q`` already padded to a built
+    head_dim); returns ``(variant, use_rel, seed tensor, threshold,
+    keep_scale, dropout flag)``."""
     batch, heads, seq, depth = q.shape
     variant = (kernel_variant(q.dtype, depth), depth)
     if seq % KERNEL_BLOCK:
@@ -229,7 +272,7 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def flash_attention_forward(q, k, v, rel_embedding=None, *, scale: bool = True,
+def flash_attention_forward(q, k, v, rel_embedding=None, *, scale=True,
                             dropout_rate: float = 0.0, dropout_seed=None):
     """``(out, lse)`` of the forward kernel on CUDA tensors, of
     ``flash_attention_reference`` on CPU tensors. ``rel_embedding`` must
@@ -241,27 +284,28 @@ def flash_attention_forward(q, k, v, rel_embedding=None, *, scale: bool = True,
 
     _check_tensors(q, k, v, rel_embedding)
     batch, heads, seq, depth = q.shape
+    width = padded_head_dim(q.dtype, depth)
+    qp, kp, vp, ep = pad_head_dim(width, q, k, v, rel_embedding)
     variant, use_rel, seed, threshold, keep_scale, dropout = _kernel_args(
-        q, rel_embedding, dropout_rate, dropout_seed)
-    out = torch.empty_like(q)
+        qp, ep, dropout_rate, dropout_seed)
+    out = torch.empty_like(qp)
     lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
     err = load_library("flash_attention").flash_attention_forward(
-        int(variant[0] == "mma"), q.device.index or 0, _ptr(q), _ptr(k), _ptr(v),
-        _ptr(rel_embedding), _ptr(out), _ptr(lse), _ptr(seed), batch * heads, heads, seq, depth,
-        rel_embedding.shape[1] if use_rel else 0, int(use_rel),
-        depth ** -0.5 if scale else 1.0, threshold, keep_scale, int(dropout),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        int(variant[0] == "mma"), q.device.index or 0, _ptr(qp), _ptr(kp), _ptr(vp),
+        _ptr(ep), _ptr(out), _ptr(lse), _ptr(seed), batch * heads, heads, seq, width,
+        ep.shape[1] if use_rel else 0, int(use_rel), softmax_scale(scale, depth), threshold,
+        keep_scale, int(dropout), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_forward failed to launch: cudaError {err}")
     flash_attention_forward.launches[variant] += 1
-    return out, lse
+    return (out if width == depth else out[..., :depth].contiguous()), lse
 
 
 flash_attention_forward.launches = dict.fromkeys(VARIANTS, 0)
 
 
-def flash_attention_backward(q, k, v, rel_embedding, out, lse, dout, *, scale: bool = True,
+def flash_attention_backward(q, k, v, rel_embedding, out, lse, dout, *, scale=True,
                              dropout_rate: float = 0.0, dropout_seed=None):
     """``(dq, dk, dv, dE)`` of the backward kernel on CUDA tensors, of
     ``flash_attention_backward_reference`` on CPU tensors."""
@@ -273,27 +317,30 @@ def flash_attention_backward(q, k, v, rel_embedding, out, lse, dout, *, scale: b
 
     _check_tensors(q, k, v, rel_embedding, out, dout)
     batch, heads, seq, depth = q.shape
+    width = padded_head_dim(q.dtype, depth)
+    qp, kp, vp, ep, dop = pad_head_dim(width, q, k, v, rel_embedding, dout)
     variant, use_rel, seed, threshold, keep_scale, dropout = _kernel_args(
-        q, rel_embedding, dropout_rate, dropout_seed)
+        qp, ep, dropout_rate, dropout_seed)
     lse = lse.to(torch.float32).contiguous()
     # delta = rowsum(dO * O) in float32 before the kernel, as _flash_bwd_rule.
     delta = (dout.float() * out.float()).sum(-1)
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    de = (torch.zeros(rel_embedding.shape, dtype=torch.float32, device=q.device)
-          if use_rel else None)
+    dq = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    de = torch.zeros(ep.shape, dtype=torch.float32, device=q.device) if use_rel else None
     err = load_library("flash_attention").flash_attention_backward(
-        int(variant[0] == "mma"), q.device.index or 0, _ptr(q), _ptr(k), _ptr(v),
-        _ptr(rel_embedding), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(seed), _ptr(dq),
-        _ptr(dk), _ptr(dv), _ptr(de), batch * heads, heads, seq, depth,
-        rel_embedding.shape[1] if use_rel else 0, int(use_rel),
-        depth ** -0.5 if scale else 1.0, threshold, keep_scale, int(dropout),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        int(variant[0] == "mma"), q.device.index or 0, _ptr(qp), _ptr(kp), _ptr(vp),
+        _ptr(ep), _ptr(dop), _ptr(lse), _ptr(delta), _ptr(seed), _ptr(dq),
+        _ptr(dk), _ptr(dv), _ptr(de), batch * heads, heads, seq, width,
+        ep.shape[1] if use_rel else 0, int(use_rel), softmax_scale(scale, depth), threshold,
+        keep_scale, int(dropout), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_backward failed to launch: cudaError {err}")
     flash_attention_backward.launches[variant] += 1
-    return dq.to(q.dtype), dk, dv, de.to(rel_embedding.dtype) if use_rel else None
+    grads = (dq.to(q.dtype), dk, dv, de.to(rel_embedding.dtype) if use_rel else None)
+    if width != depth:
+        grads = tuple(g if g is None else g[..., :depth].contiguous() for g in grads)
+    return grads
 
 
 flash_attention_backward.launches = dict.fromkeys(VARIANTS, 0)
@@ -323,7 +370,7 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, de, None, None, None
 
 
-def relative_flash_attention(q, k, v, rel_embedding=None, *, scale: bool = True,
+def relative_flash_attention(q, k, v, rel_embedding=None, *, scale=True,
                              dropout_rate: float = 0.0, dropout_seed=None):
     """Causal flash attention. q, k, v: ``[batch, heads, S, D]``.
 

@@ -49,28 +49,38 @@ def _inputs(dtype, use_rel, device, B=2, H=2, S=256, D=16, W=512, seed=0):
     return q, k, v, tensor(H, W, D, std=0.25) if use_rel else None, dout
 
 
-@pytest.mark.parametrize("dtype,depth", [(torch.float32, 16), (torch.bfloat16, 16),
-                                         (torch.bfloat16, 64)])
+@pytest.mark.parametrize("dtype,depth", [
+    (dtype, depth) for dtype in (torch.float32, torch.bfloat16) for depth in (16, 32, 64, 128)]
+    + [(torch.bfloat16, 48), (torch.float32, 24)])
 @pytest.mark.parametrize("use_rel", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_kernels_match_plain_version(cuda_device, dtype, depth, use_rel, rate):
-    """Each route of ``kernel_variant``: the float32 scalar kernels at
-    head_dim 16, the bf16 tensor-core kernels at 16 and 64, held by
-    ``chip_smoke.py``'s phase-4 limits (``flash_errors``: float32 O and lse
-    2e-4, gradients 5e-4 of scale; bf16 lse 1e-3, other outputs 2% of scale
-    and 2% of each row's norm)."""
+    """Each route of ``kernel_variant`` at every built head_dim (16, 32, 64,
+    128: the float32 scalar kernels, the bf16 tensor-core kernels), and two
+    padded widths (bf16 48 runs the D=64 kernels, float32 24 the D=32 ones),
+    held by ``chip_smoke.py``'s phase-4 limits (``flash_errors``: float32 O
+    and lse 2e-4, gradients 5e-4 of scale; bf16 lse 1e-3, other outputs 2%
+    of scale and 2% of each row's norm)."""
     from chip_smoke import flash_errors
 
     q, k, v, e, dout = _inputs(dtype, use_rel, cuda_device, D=depth)
     seed = torch.tensor([77], dtype=torch.int32, device=cuda_device)
     kw = dict(scale=True, dropout_rate=rate, dropout_seed=seed if rate else None)
+    variant = (fa.kernel_variant(dtype, fa.padded_head_dim(dtype, depth)),
+               fa.padded_head_dim(dtype, depth))
     launches = _launched()
+    before = (fa.flash_attention_forward.launches[variant],
+              fa.flash_attention_backward.launches[variant])
     out, lse = fa.flash_attention_forward(q, k, v, e, **kw)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, e, **kw)
     grads = fa.flash_attention_backward(q, k, v, e, ref_out, ref_lse, dout, **kw)
     ref_grads = fa.flash_attention_backward_reference(q, k, v, e, ref_out, ref_lse, dout, **kw)
     torch.cuda.synchronize()
     assert _launched() == (launches[0] + 1, launches[1] + 1)
+    assert (fa.flash_attention_forward.launches[variant],
+            fa.flash_attention_backward.launches[variant]) == (before[0] + 1, before[1] + 1)
+    assert out.shape == q.shape and all(
+        ours.shape == plain.shape for ours, plain in zip(grads, ref_grads) if plain is not None)
     pairs = [("O", out, ref_out), ("lse", lse, ref_lse)] + [
         (name, a, b) for name, a, b in zip(("dq", "dk", "dv", "dE"), grads, ref_grads)
         if b is not None]
@@ -79,12 +89,15 @@ def test_kernels_match_plain_version(cuda_device, dtype, depth, use_rel, rate):
         assert fault is None, (name, report, fault)
 
 
-def test_flash_path_raises_for_an_unbuilt_head_dim(cuda_device):
-    """The routing rule does not look at head_dim: head_dim 8 on the flash
-    path reaches the wrapper, which raises instead of falling back."""
-    q, k, v, _, _ = _inputs(torch.float32, False, cuda_device, D=8)
+@pytest.mark.parametrize("dtype,depth", [(torch.float32, 192), (torch.bfloat16, 192),
+                                         (torch.float16, 64)])
+def test_flash_path_raises_for_an_unbuilt_head_dim(cuda_device, dtype, depth):
+    """The routing rule does not look at head_dim or dtype: head_dim 192 or
+    float16 on the flash path reaches the wrapper, which raises naming the
+    ROADMAP item instead of falling back."""
+    q, k, v, _, _ = _inputs(dtype, False, cuda_device, D=depth)
     launches = _launched()
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="head_dim.*Queue 2 item 1b"):
         attention.multihead_attention(q, k, v, use_pallas=True)
     assert _launched() == launches
 
@@ -149,3 +162,28 @@ def test_one_bf16_trainer_step_at_head_dim_64(cuda_device):
              fa.flash_attention_backward.launches[("mma", 64)])
     assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
     assert np.isfinite(loss)
+
+
+def test_one_bf16_trainer_step_at_head_dim_128(cuda_device):
+    """One bf16 train step at head_dim 128 (the embed-2048 architecture's
+    heads at a small size: relative attention, dropout) runs through the
+    tensor-core kernels at head_dim 128 (the backward's split key groups),
+    one launch per layer each way, with a finite loss and finite
+    gradients."""
+    config = TransformerConfig(vocab_size=64, embed_dim=256, window_size=256, num_layers=2,
+                               num_heads=2, use_relative_attention=True,
+                               attention_dropout_rate=0.1, residual_dropout_rate=0.1,
+                               use_pallas_attention=True, dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+    x, y = rng.integers(0, 64, (2, 256)), rng.integers(0, 64, (2, 256))
+    trainer = Trainer(Transformer(config), ModelType.TRANSFORMER, 1e-3, device=cuda_device)
+    state = trainer.init_state(2, 256)
+    before = (fa.flash_attention_forward.launches[("mma", 128)],
+              fa.flash_attention_backward.launches[("mma", 128)])
+    loss = float(trainer.train_step(state, x, y, trainer.make_dropout_generator())["loss"])
+    after = (fa.flash_attention_forward.launches[("mma", 128)],
+             fa.flash_attention_backward.launches[("mma", 128)])
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
+    assert np.isfinite(loss)
+    assert all(bool(torch.isfinite(p.grad).all()) for p in state.model.parameters()
+               if p.grad is not None)

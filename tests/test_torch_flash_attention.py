@@ -29,12 +29,14 @@ def _inputs(use_rel, B=1, H=2, S=256, D=16, W=512, seed=0):
     return q, k, v, e, cot
 
 
-@pytest.mark.parametrize("depth", [16, 64])
+@pytest.mark.parametrize("depth", [16, 32, 48, 64, 128])
 @pytest.mark.parametrize("use_rel", [False, True])
 def test_flash_matches_jax_interpret_mode(use_rel, depth):
     """Forward and dq/dk/dv/dE against the JAX kernels (block 128: two
     q-tiles, off-diagonal tiles and the in-place dQ/dE accumulation), at the
-    default model's head_dim and the flagship's."""
+    default model's head_dim (16), the flagship's (64), the embed-2048
+    architecture's (128), 32, and 48, which the port's kernels run padded to
+    64 (JAX pads every depth to 128)."""
     q, k, v, e, cot = _inputs(use_rel, D=depth)
 
     def loss(q, k, v, e):
@@ -136,8 +138,9 @@ def test_routing_rule():
     """``use_pallas`` with square causal attention and S % 128 == 0 takes
     the flash path, whatever the head_dim; other shapes the plain path. A
     CUDA tensor on the flash path goes to the kernel (the wrappers'
-    decision; no card needed), and one whose head_dim the kernel is not
-    built for fails the kernel's checks instead of taking the plain path."""
+    decision; no card needed): a head_dim between the built ones is padded
+    up to the next, and one above 128 fails the kernel's checks instead of
+    taking the plain path."""
     def qk(seq, depth=16):
         x = torch.zeros(1, 2, seq, depth)
         return x, x
@@ -146,8 +149,14 @@ def test_routing_rule():
     assert not attention.takes_flash_path(*qk(256), use_pallas=False)
     assert not attention.takes_flash_path(*qk(100), use_pallas=True)
     assert attention.takes_flash_path(*qk(256, depth=8), use_pallas=True)
+    assert attention.takes_flash_path(*qk(256, depth=192), use_pallas=True)
+    x8 = qk(256, depth=8)[0]
     with pytest.raises(ValueError, match="head_dim"):
-        fa._kernel_args(qk(256, depth=8)[0], None, 0.0, None)
+        fa._kernel_args(x8, None, 0.0, None)  # the kernels take only built widths
+    padded = fa.pad_head_dim(fa.padded_head_dim(x8.dtype, 8), x8)[0]
+    assert fa._kernel_args(padded, None, 0.0, None)[0] == ("scalar", 16)
+    with pytest.raises(ValueError, match="head_dim 192"):
+        fa.padded_head_dim(torch.float32, 192)
     fa._kernel_args(qk(256)[0], None, 0.0, None)  # head_dim 16 passes
     assert not attention.takes_flash_path(*qk(256), use_pallas=True, mask=torch.ones(256, 256))
     assert not attention.takes_flash_path(*qk(256), use_pallas=True, q_position=3)
@@ -156,23 +165,70 @@ def test_routing_rule():
 
 
 def test_kernel_variant_table():
-    """The fixed routing table: bf16 at head_dim 16 and 64 takes the
-    tensor-core kernels, float32 at 16 the scalar ones, anything else
-    raises naming what is built."""
-    assert fa.kernel_variant(torch.bfloat16, 16) == "mma"
-    assert fa.kernel_variant(torch.bfloat16, 64) == "mma"
-    assert fa.kernel_variant(torch.float32, 16) == "scalar"
-    for dtype, depth in ((torch.bfloat16, 8), (torch.float32, 64), (torch.float16, 16),
-                         (torch.float16, 64), (torch.bfloat16, 128)):
-        with pytest.raises(ValueError, match="built for .*bfloat16 x 64.*float32 x 16"):
+    """The fixed routing table: bf16 takes the tensor-core kernels and
+    float32 the scalar ones, each built at head_dim 16, 32, 64 and 128;
+    other head_dims up to 128 pad to the next built one (8 to 16, 48 to 64,
+    96 to 128); float16, float64 and head_dim above 128 raise naming what is
+    built and the ROADMAP item."""
+    for depth in (16, 32, 64, 128):
+        assert fa.kernel_variant(torch.bfloat16, depth) == "mma"
+        assert fa.kernel_variant(torch.float32, depth) == "scalar"
+        for dtype in (torch.bfloat16, torch.float32):
+            assert fa.padded_head_dim(dtype, depth) == depth
+    for depth, width in ((1, 16), (8, 16), (17, 32), (24, 32), (48, 64), (96, 128),
+                         (127, 128)):
+        assert fa.padded_head_dim(torch.bfloat16, depth) == width
+        assert fa.padded_head_dim(torch.float32, depth) == width
+    for dtype, depth in ((torch.bfloat16, 8), (torch.float32, 48), (torch.bfloat16, 192)):
+        with pytest.raises(ValueError, match="built for bfloat16, float32 at head_dim "
+                                             "16, 32, 64, 128.*Queue 2 item 1b"):
             fa.kernel_variant(dtype, depth)
+    for dtype, depth in ((torch.float16, 16), (torch.float16, 64), (torch.float64, 16),
+                         (torch.bfloat16, 192), (torch.float32, 129)):
+        with pytest.raises(ValueError, match="Queue 2 item 1b"):
+            fa.padded_head_dim(dtype, depth)
     x = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16)
     assert fa._kernel_args(x, None, 0.0, None)[0] == ("mma", 64)
-    with pytest.raises(ValueError, match="head_dim 64"):
-        fa._kernel_args(x.float(), None, 0.0, None)
-    assert set(fa.VARIANTS) == {("mma", 16), ("mma", 64), ("scalar", 16)}
+    assert fa._kernel_args(x.float(), None, 0.0, None)[0] == ("scalar", 64)
+    with pytest.raises(ValueError, match="float16 x head_dim 64"):
+        fa._kernel_args(x.half(), None, 0.0, None)
+    assert set(fa.VARIANTS) == {(route, depth) for route in ("mma", "scalar")
+                                for depth in (16, 32, 64, 128)}
     assert set(fa.flash_attention_forward.launches) == set(fa.VARIANTS)
     assert set(fa.flash_attention_backward.launches) == set(fa.VARIANTS)
+
+
+@pytest.mark.parametrize("depth", [8, 24, 48, 96])
+@pytest.mark.parametrize("use_rel", [False, True])
+def test_padding_gives_the_unpadded_result(use_rel, depth):
+    """What the wrappers do on a card for a head_dim between the built
+    ones, on the CPU: pad q, k, v, E and the cotangent to the built width,
+    run the plain version there with the true depth's scale, slice back.
+    O, lse and dq/dk/dv/dE equal the plain version at the true width
+    (float32, different summation orders), with dropout on."""
+    q, k, v, e, cot = (None if x is None else torch.tensor(x)
+                       for x in _inputs(use_rel, S=128, D=depth, W=256, seed=depth))
+    kw = dict(dropout_rate=0.1, dropout_seed=5)
+    width = fa.padded_head_dim(torch.float32, depth)
+    assert width in fa.BUILT_HEAD_DIMS and width > depth
+    qp, kp, vp, ep, cotp = fa.pad_head_dim(width, q, k, v, e, cot)
+    assert qp.shape[-1] == width and (ep is None) == (not use_rel)
+    c = depth ** -0.5
+    out, lse = fa.flash_attention_reference(q, k, v, e, **kw)
+    out_p, lse_p = fa.flash_attention_reference(qp, kp, vp, ep, scale=c, **kw)
+    assert float(out_p[..., depth:].abs().max()) == 0.0
+    np.testing.assert_allclose(out_p[..., :depth].numpy(), out.numpy(), rtol=OUT_TOL,
+                               atol=OUT_TOL)
+    np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), rtol=OUT_TOL, atol=OUT_TOL)
+    grads = fa.flash_attention_backward_reference(q, k, v, e, out, lse, cot, **kw)
+    grads_p = fa.flash_attention_backward_reference(qp, kp, vp, ep, out_p, lse_p, cotp,
+                                                    scale=c, **kw)
+    for name, grad, grad_p in zip(("dq", "dk", "dv", "dE"), grads, grads_p):
+        if grad is None:
+            assert grad_p is None
+            continue
+        np.testing.assert_allclose(grad_p[..., :depth].numpy(), grad.numpy(), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("seq", [100, 128])
