@@ -40,9 +40,10 @@ Phases (any failure exits non-zero):
    with the same seed (both draw the same Philox bits), on each route of
    ``kernel_variant`` at every head_dim built (16, 32, 64, 128), each at
    the shapes the main path gives it (``FLASH_CHECKS``): float32 (the
-   scalar kernels) at the training path's shapes (B=8, H=16, S=1024,
-   W=1024) at D=16 and 32, at the flagship's (B=8, S=2048, D=64, W=2048)
-   and the embed-2048 architecture's (B=4, S=2048, D=128, W=2048), with
+   split-TF32 kernels of csrc/flash_attention_tf32.cuh, route ``tf32x3``:
+   each product as three TF32 products) at the training path's shapes (B=8, H=16, S=1024,
+   W=1024) at D=16 and 32 and padded 24, at the flagship's (B=8, S=2048,
+   D=64, W=2048) and the embed-2048 architecture's (B=4, S=2048, D=128, W=2048), with
    TF32 off, O and lse within 2e-4, dq/dk/dv/dE within 5e-4 of their scale
    (float32 atomics change the summation order); bfloat16 (the tensor-core
    kernels of csrc/flash_attention_mma.cuh) at the same shapes and at D=48,
@@ -53,7 +54,7 @@ Phases (any failure exits non-zero):
    still shows. ``python3 chip_smoke.py --flash-planted-faults`` shows these
    rules failing on faults planted in far tiles of copies of the kernels (a
    band row shifted by one, two dropout words swapped), bf16 at D=16, 64
-   and 128 and float32 at D=64.
+   and 128 and float32 at D=64 and 128.
 5. The training path, ``Trainer.train`` on a ``WindowDataset`` of event ids
    encoded by the MIDI codec: the default config with
    ``use_pallas_attention`` (bf16 compute, dropout 0.1), batch 8 x 1024,
@@ -64,7 +65,7 @@ Phases (any failure exits non-zero):
    events through ``generate_ids(engine="auto")``. Step time, train
    events/s and ``profile_steps``' flash and idle shares are printed. Then
    3 float32 steps (mixed precision off, relative attention on) through the
-   scalar kernels: 8 x 3 launches each way, finite losses.
+   split-TF32 kernels: 8 x 3 launches each way, finite losses.
 5b. The flagship's training path: ``Trainer.train`` on the embed-1024
    flagship (8 layers x 16 heads of 64, window 2048, relative attention)
    with its flash recipe (``use_pallas_attention``, bf16 compute, dropout
@@ -72,9 +73,11 @@ Phases (any failure exits non-zero):
    the tensor-core kernels at head_dim 64 must launch 8 x 5 times each way
    and the losses be finite; step time, train events/s and the profile's
    shares are printed. Then the flash kernels, their plain version and, as
-   a yardstick the port never calls, ``scaled_dot_product_attention`` are
-   timed with CUDA events for each (route, head_dim) built at its shape of
-   phase 4 (``FLASH_TIMED``), each beside ``flash_bound``.
+   a yardstick the port never calls, ``scaled_dot_product_attention``
+   (pinned with ``sdpa_kernel`` to the backend it takes unpinned, whose name
+   is printed) are timed with CUDA events for each (route, head_dim) built
+   at its shape of phase 4 (``FLASH_TIMED``), each beside ``flash_bound``;
+   with ``--parent``, the parent's float32 kernels too, before and after.
 5c. The embed-2048 architecture (``EMBED2048``: vocab 390, 8 layers x 16
    heads of 128, window 2048, relative attention; about 441 M parameters)
    through ``Trainer.train`` with ``use_pallas_attention``, bf16 compute,
@@ -94,7 +97,9 @@ Phases (any failure exits non-zero):
    0.1): bf16 and float32 at head_dim 32 (embed 512, 16 heads, 8 x 1024),
    float32 at 64 (the flagship with ``mixed_precision`` off, 8 x 2048) and
    at 128 (the embed-2048 architecture in float32, 4 x 2048); 8 launches a
-   step each way, finite losses.
+   step each way, finite losses. Each float32 case prints its mean step time
+   (steps 2-3) and ``profile_steps``' flash share; with ``--parent``, three
+   more steps on the parent's flash library, then three on this one's.
 6. The speculative kernel ``spec_decode`` (csrc/spec_decode.cu, one
    thread-block cluster of G blocks, G printed) against its plain PyTorch
    version in float32: identical tokens and stats, greedy and sampled,
@@ -119,11 +124,13 @@ Phases (any failure exits non-zero):
    the sequential kernel's and the plain version's times are printed, with
    the block / step ratio (the acceptance at which spec breaks even).
    ``python3 chip_smoke.py --parent <checkout>`` also builds that
-   checkout's ``csrc/spec_decode.cu``, ``csrc/decode_wide.cu`` and
-   ``csrc/decode_wide_segment.cu`` (the parent commit, unpacked with
-   ``git archive`` into a directory ``.gitignore`` lists;
-   ``parent_libraries``) and times them on the same inputs as this
-   checkout's, parent, this, this, parent (here and in phases 8c and 9b).
+   checkout's ``csrc/spec_decode.cu``, ``csrc/decode_wide.cu``,
+   ``csrc/decode_wide_segment.cu`` and ``csrc/flash_attention.cu`` (the
+   parent commit, unpacked with ``git archive`` into a directory
+   ``.gitignore`` lists; ``parent_libraries``) and times them on the same
+   inputs as this checkout's, parent, this, this, parent (here and in
+   phases 8c and 9b; the float32 flash pair in ``flash_timings``, parent,
+   this, parent, and phase 5d's float32 steps, this, parent, this).
 7. The segmented decode kernel ``decode_segment`` (csrc/decode_segment.cu)
    and ``ContinuousGenerationService``. (a) Kernel against plain version in
    float32 at the default widths: 8 slots, ragged prompts, a slot parked
@@ -265,8 +272,10 @@ each step's weights and K/V prefixes again where they outgrow the 50 MB L2
 (dtype, head_dim) built, told apart by ``variant``, ``dtype`` and
 ``head_dim``, timed at ``shape``, its launches those of the phase that
 trains through it (5, 5b, 5c or 5d); ``cluster``, the blocks a sequence took, for the cluster
-kernels, else null; for the speculative and the two wide kernels
-``parent_ms``, the ``--parent`` checkout's times or null; ``http_launches``,
+kernels, else null; for the speculative, the two wide and the float32
+flash kernels ``parent_ms``, the ``--parent`` checkout's times or null; for
+the flash kernels ``library``, the SDPA backend timed as ``library_ms``, and
+``train_step_ms``, phase 5d's step times; ``http_launches``,
 the kernel's launches in phase 10 (a)-(d), read from its wrapper's count;
 ``cli_launches``, its launches in phase 11, in process and behind both
 servers), then, as the last line,
@@ -275,7 +284,7 @@ servers), then, as the last line,
     python3 chip_smoke.py --flash-planted-faults
 
 runs phase 4's rules on the sound flash kernels and on copies with faults
-planted in far tiles (bf16 at D=16, 64 and 128, float32 at 64), and exits 0
+planted in far tiles (bf16 at D=16, 64 and 128, float32 at 64 and 128), and exits 0
 only if the sound kernels pass and every fault fails in every case.
 """
 
@@ -284,6 +293,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -312,7 +322,7 @@ FLASH_FLAGSHIP_SHAPE = (8, 16, 2048, 64, 2048)  # the flagship's: 16 heads of 64
 FLASH_WIDE_SHAPE = (4, 16, 2048, 128, 2048)
 TRAIN_STEPS = 20
 TRAIN_BATCH, TRAIN_WINDOW = 8, 1024
-F32_TRAIN_STEPS = 3  # float32 steps: the scalar flash kernels' route
+F32_TRAIN_STEPS = 3  # float32 steps: the split-TF32 flash kernels' route
 FLAGSHIP_TRAIN_STEPS, FLAGSHIP_TRAIN_WINDOW = 5, 2048
 # The embed-2048 architecture (composer_tpu/bench.py:1559-1563; README's
 # scaled model): 8 layers x 16 heads of 128, window 2048, relative attention,
@@ -324,7 +334,7 @@ EMBED2048_GENERATE_EVENTS = 246  # 10 + 246 at B=8, cut from 1014 for time
 WIDTH_TRAIN_STEPS = 3  # phase 5d: steps through each remaining (dtype, head_dim) built
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate, published
-F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores, published
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor rate, published
 L2_BYTES = 50 * 2**20  # H100 SXM's 50 MB L2, taken in MiB: the larger, so bounds stay lower
 
 
@@ -784,8 +794,9 @@ def flash_bound(shape, use_rel: bool, backward: bool, dtype=torch.bfloat16):
     (and E) and writes dq, dk, dv (and dE). Products over the causal pairs,
     2 D operations each: QK^T and PV (plus the band q.E) forward; the
     recomputed QK^T, dO V^T, P^T dO, dS K and dS^T Q (plus the band's
-    recompute, dq and dE) backward. bf16 at the tensor-core rate, float32
-    at the rate outside the tensor cores (the scalar kernels' FMAs)."""
+    recompute, dq and dE) backward. bf16 at the tensor-core rate; float32
+    at a third of the TF32 rate, the least a float32-accurate product takes
+    on the tensor cores (three TF32 products, split TF32)."""
     B, H, S, D, W = shape
     elem_bytes = torch.tensor([], dtype=dtype).element_size()
     tensor = B * H * S * D * elem_bytes
@@ -797,7 +808,7 @@ def flash_bound(shape, use_rel: bool, backward: bool, dtype=torch.bfloat16):
     else:
         byte_count, products = 4 * tensor + rows + table, 2 + use_rel
     return bound(byte_count, products * 2 * D * pairs,
-                 BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+                 BF16_FLOPS if dtype == torch.bfloat16 else TF32_FLOPS / 3)
 
 
 def flash_inputs(dtype, use_rel: bool, device, seed: int, shape=FLASH_SHAPE):
@@ -820,19 +831,19 @@ def flash_shape(depth: int) -> tuple:
 
 
 # What phase 4 checks, each (dtype, head_dim) built at the shapes the main
-# path gives it (phases 5, 5b, 5c, 5d), and head_dim 48, which the wrapper
-# pads to the D=64 kernels: (dtype, shape) -> (route, head_dim) of
-# ops/flash_attention.py::VARIANTS.
+# path gives it (phases 5, 5b, 5c, 5d), and head_dims the wrapper pads: bf16
+# 48 to the D=64 kernels, float32 24 to the D=32 ones: (dtype, shape) ->
+# (route, head_dim) of ops/flash_attention.py::VARIANTS.
 FLASH_CHECKS = ((torch.float32, FLASH_SHAPE), (torch.bfloat16, FLASH_SHAPE),
                 (torch.bfloat16, FLASH_FLAGSHIP_SHAPE), (torch.bfloat16, FLASH_WIDE_SHAPE),
                 (torch.bfloat16, flash_shape(32)), (torch.float32, flash_shape(32)),
                 (torch.float32, FLASH_FLAGSHIP_SHAPE), (torch.float32, FLASH_WIDE_SHAPE),
-                (torch.bfloat16, flash_shape(48)))
+                (torch.bfloat16, flash_shape(48)), (torch.float32, flash_shape(24)))
 # The shape each (route, head_dim) built is timed at (``flash_timings``).
 FLASH_TIMED = {("mma", 16): FLASH_SHAPE, ("mma", 32): flash_shape(32),
                ("mma", 64): FLASH_FLAGSHIP_SHAPE, ("mma", 128): FLASH_WIDE_SHAPE,
-               ("scalar", 16): FLASH_SHAPE, ("scalar", 32): flash_shape(32),
-               ("scalar", 64): FLASH_FLAGSHIP_SHAPE, ("scalar", 128): FLASH_WIDE_SHAPE}
+               ("tf32x3", 16): FLASH_SHAPE, ("tf32x3", 32): flash_shape(32),
+               ("tf32x3", 64): FLASH_FLAGSHIP_SHAPE, ("tf32x3", 128): FLASH_WIDE_SHAPE}
 
 
 def flash_row_error(ours, plain) -> float:
@@ -932,8 +943,8 @@ def flash_vs_plain(device) -> dict:
 
 def planted_fault(kind: str, where: str) -> tuple:
     """Edits ``(file, text, replacement)`` that plant a fault in a copy of
-    the flash kernels (the tensor-core ones at every head_dim and the
-    float32 scalar ones), confined to the q-tile/k-tile pairs where the C
+    the flash kernels (the bf16 and the float32 split-TF32 ones, at every
+    head_dim), confined to the q-tile/k-tile pairs where the C
     condition ``where`` (on ``ib``, ``jb`` and ``bh``) holds: ``"band"``
     shifts the staged band by one row, ``"dropout"`` swaps two neighbouring
     Philox words, forward and backward."""
@@ -944,12 +955,12 @@ def planted_fault(kind: str, where: str) -> tuple:
                 ("flash_attention_mma.cuh",
                  "W - kBlock - (ib - jb) * kBlock, W);",
                  f"W - kBlock - (ib - jb) * kBlock + ({where}), W);"),
-                ("flash_attention.cu",
-                 "a.window - kBlock - (ib - jb) * kBlock, a.window);",
-                 f"a.window - kBlock - (ib - jb) * kBlock + ({where}), a.window);"),
-                ("flash_attention.cu",
-                 "W - kBlock - t * kBlock, W);",
-                 f"W - kBlock - t * kBlock + ({where}), W);"))
+                ("flash_attention_tf32.cuh",
+                 "a.window - kBlock - (ib - jb) * kBlock,",
+                 f"a.window - kBlock - (ib - jb) * kBlock + ({where}),"),
+                ("flash_attention_tf32.cuh",
+                 "W - kBlock - (ib - jb) * kBlock, W);",
+                 f"W - kBlock - (ib - jb) * kBlock + ({where}), W);"))
     return (("flash_attention_mma.cuh",
              "const unsigned w[4] = {wg.x, wg.y, wh.x, wh.y};",
              f"const bool swap = {where};\n"
@@ -959,12 +970,15 @@ def planted_fault(kind: str, where: str) -> tuple:
              "words[c] = slot[4 * (4 * (4 * grp + c) + t) + 16 * grp + cl];\n"
              f"        if ({where}) {{ const unsigned w0 = words[0]; words[0] = words[1]; "
              "words[1] = w0; }"),
-            ("flash_attention.cu",
-             "p *= word(bits, c) >= a.threshold",
-             f"p *= word(bits, ({where}) ? c ^ 1 : c) >= a.threshold"),
-            ("flash_attention.cu",
-             "keep_multiplier(a, seed, bh, ib * kBlock + i, kpos);",
-             f"keep_multiplier(a, seed, bh, ib * kBlock + i, ({where}) ? kpos ^ 1 : kpos);"))
+            ("flash_attention_tf32.cuh",
+             "const unsigned w[4] = {wg.x, wg.y, wh.x, wh.y};",
+             f"const bool swap = {where};\n"
+             "        const unsigned w[4] = {swap ? wg.y : wg.x, swap ? wg.x : wg.y, wh.x, wh.y};"),
+            ("flash_attention_tf32.cuh",
+             "words[c] = drop_w[4 * (4 * (4 * grp + c) + t) + 16 * grp + cl];",
+             "words[c] = drop_w[4 * (4 * (4 * grp + c) + t) + 16 * grp + cl];\n"
+             f"        if ({where}) {{ const unsigned w0 = words[0]; words[0] = words[1]; "
+             "words[1] = w0; }"))
 
 
 # Where each fault lies: every tile pair 4 or more apart, or (at S=1024, 16
@@ -976,11 +990,13 @@ FLASH_PLANTED_FAULTS = {
                          ("tiles 15+ apart, head 0", "ib - jb >= 15 && bh == 0"))}
 
 
-# What each planted fault is run at: the bf16 tensor-core kernels at head_dim
-# 16, 64 and 128 (the split backward) and the float32 scalar kernels at 64,
-# each at its main-path shape, with the band and dropout 0.1.
+# What each planted fault is run at: the bf16 kernels at head_dim 16, 64 and
+# 128 (the split backward) and the float32 split-TF32 kernels at 64 and 128
+# (the split backward, its single-buffered q-tile), each at its main-path
+# shape, with the band and dropout 0.1.
 FLASH_FAULT_CASES = ((torch.bfloat16, FLASH_SHAPE), (torch.bfloat16, FLASH_FLAGSHIP_SHAPE),
-                     (torch.bfloat16, FLASH_WIDE_SHAPE), (torch.float32, FLASH_FLAGSHIP_SHAPE))
+                     (torch.bfloat16, FLASH_WIDE_SHAPE), (torch.float32, FLASH_FLAGSHIP_SHAPE),
+                     (torch.float32, FLASH_WIDE_SHAPE))
 
 
 def flash_planted_faults(device, card: str) -> int:
@@ -1109,7 +1125,7 @@ def timed_train(trainer, state, dataset, logdir):
 def train_path(device, card: str, prompt) -> dict:
     """Phase 5: ``Trainer.train`` through the flash kernels, checkpoint,
     restore in a fresh Trainer, generate with the restored model; then a
-    few float32 steps, the scalar kernels' route."""
+    few float32 steps, the split-TF32 kernels' route."""
     from composer_tpu_torch.config import get_default
     from composer_tpu_torch.data import WindowDataset
     from composer_tpu_torch.models import ModelType, create_model
@@ -1118,7 +1134,7 @@ def train_path(device, card: str, prompt) -> dict:
     from composer_tpu_torch.train.checkpoint import CheckpointManager
     from composer_tpu_torch.train.trainer import Trainer
 
-    results = {"launches": {("mma", 16): (0, 0), ("scalar", 16): (0, 0)}, "restored": None}
+    results = {"launches": {("mma", 16): (0, 0), ("tf32x3", 16): (0, 0)}, "restored": None}
     expected = (TRAIN_STEPS * 8,) * 2  # layers x steps, each way
     for use_relative in (False, True):
         config = get_default()
@@ -1181,7 +1197,7 @@ def train_path(device, card: str, prompt) -> dict:
         if not use_relative:
             results["restored"] = restored.model.eval()
 
-    # float32 compute (mixed_precision off): the scalar kernels' route.
+    # float32 compute (mixed_precision off): the split-TF32 kernels' route.
     config = get_default()
     config.transformer.model.use_pallas_attention = True
     config.transformer.model.use_relative_attention = True
@@ -1194,17 +1210,17 @@ def train_path(device, card: str, prompt) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         reset_flash_counts()
         state, step_seconds, losses, _ = timed_train(trainer, state, dataset, tmp)
-        launches = flash_counts(("scalar", 16))
+        launches = flash_counts(("tf32x3", 16))
     mean_step = float(np.mean(step_seconds[1:]))
     print(f"train f32 rel=True: {len(losses)} steps, losses {[round(x, 4) for x in losses]}, "
-          f"flash (f32 scalar) launches fwd {launches[0]} bwd {launches[1]}; step time "
+          f"flash (f32 tf32x3) launches fwd {launches[0]} bwd {launches[1]}; step time "
           f"{mean_step * 1e3:.2f} ms (steps 2-{F32_TRAIN_STEPS}), "
           f"{TRAIN_BATCH * TRAIN_WINDOW / mean_step:.1f} train events/s [{card}]", flush=True)
     if launches != (F32_TRAIN_STEPS * 8,) * 2:
         raise AssertionError(f"f32 flash launches {launches}, wanted {F32_TRAIN_STEPS * 8} each")
     if len(losses) != F32_TRAIN_STEPS or not np.all(np.isfinite(losses)):
         raise AssertionError(f"bad f32 losses: {losses}")
-    results["launches"][("scalar", 16)] = launches
+    results["launches"][("tf32x3", 16)] = launches
     return results
 
 
@@ -1403,15 +1419,35 @@ def wide_2048_vs_plain(device) -> float:
     return worst
 
 
-def width_train_path(device, card: str, yaml_config) -> dict:
+def step_seconds_of(trainer, state, dataset, steps: int) -> list:
+    """Host-clock seconds of ``steps`` train steps (each ends in a
+    synchronize) on the windows of ``dataset``, with a dropout generator."""
+    generator = trainer.make_dropout_generator()
+    batches = iter(dataset)
+    seconds = []
+    for _ in range(steps):
+        x, y = next(batches)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        trainer.train_step(state, x, y, generator)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    return seconds
+
+
+def width_train_path(device, card: str, yaml_config, parent=None) -> dict:
     """Phase 5d: ``Trainer.train`` for ``WIDTH_TRAIN_STEPS`` steps through
     each flash kernel built that phases 5-5c do not train, each on the model
     whose attention has that shape (``use_pallas_attention``, relative
     attention, dropout 0.1 / 0.1): bf16 and float32 at head_dim 32 (embed
     512, 16 heads, batch 8 x 1024), float32 at 64 (the flagship with
     ``mixed_precision`` off, 8 x 2048) and at 128 (the embed-2048
-    architecture in float32, 4 x 2048). Returns the launches by
-    ``(route, head_dim)``."""
+    architecture in float32, 4 x 2048). Each float32 case is profiled
+    (``profile_steps``: the flash share) and, with ``parent`` (another
+    checkout's flash library), takes ``WIDTH_TRAIN_STEPS`` more steps on it
+    and then on this one's, each timed apart. Returns the launches by
+    ``(route, head_dim)`` and, under ``"step_ms"``, the float32 mean step
+    times (steps 2-3: this, parent, this again)."""
     from composer_tpu_torch.data import WindowDataset
     from composer_tpu_torch.models import ModelType
     from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
@@ -1420,12 +1456,12 @@ def width_train_path(device, card: str, yaml_config) -> dict:
     cases = (
         (("mma", 32), dict(vocab_size=390, embed_dim=512, window_size=1024, num_layers=8,
                            num_heads=16, use_relative_attention=True), torch.bfloat16, 8),
-        (("scalar", 32), dict(vocab_size=390, embed_dim=512, window_size=1024, num_layers=8,
+        (("tf32x3", 32), dict(vocab_size=390, embed_dim=512, window_size=1024, num_layers=8,
                               num_heads=16, use_relative_attention=True), torch.float32, 8),
-        (("scalar", 64), FLAGSHIP, torch.float32, 8),
-        (("scalar", 128), EMBED2048, torch.float32, EMBED2048_BATCH),
+        (("tf32x3", 64), FLAGSHIP, torch.float32, 8),
+        (("tf32x3", 128), EMBED2048, torch.float32, EMBED2048_BATCH),
     )
-    launched = {}
+    launched, step_ms = {}, {}
     for variant, widths, dtype, batch in cases:
         config = TransformerConfig(**widths, dtype=dtype, use_pallas_attention=True)
         if config.head_dim != variant[1]:
@@ -1453,8 +1489,21 @@ def width_train_path(device, card: str, yaml_config) -> dict:
         if len(losses) != steps or not np.all(np.isfinite(losses)):
             raise AssertionError(f"bad {variant} losses: {losses}")
         launched[variant] = launches
+        if dtype == torch.float32:
+            profile_steps(trainer, state, dataset, card, steps)
+            runs = {"this": mean_step * 1e3}
+            if parent is not None:
+                for name, lib in (("parent", parent), ("this again", None)):
+                    fn = lambda: step_seconds_of(trainer, state, dataset, steps)
+                    seconds = with_library("flash_attention", lib, fn) if lib else fn()
+                    runs[name] = float(np.mean(seconds[1:])) * 1e3
+            print(f"train float32 (head_dim {variant[1]}) step ms (steps 2-{steps}): "
+                  + ", ".join(f"{name} {ms:.2f}" for name, ms in runs.items())
+                  + f" [{card}]", flush=True)
+            step_ms[variant] = runs
         del trainer, state
         torch.cuda.empty_cache()
+    launched["step_ms"] = step_ms
     return launched
 
 
@@ -1504,10 +1553,25 @@ def cuda_ms(fn, repeats: int) -> float:
     return begin.elapsed_time(end) / repeats
 
 
-def flash_timings(device, card: str, dtype, shape, plain_repeats: int = 3) -> dict:
+def sdpa_backend(q, k, v):
+    """The ``torch.nn.attention.SDPBackend`` that causal
+    ``scaled_dot_product_attention`` takes on these tensors unpinned: the
+    dispatcher's own choice (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True))
+
+
+def flash_timings(device, card: str, dtype, shape, plain_repeats: int = 3,
+                  parent=None) -> dict:
     """Kernel, plain version and SDPA (relative attention off only; a
-    yardstick, not used by the port) at ``shape`` (B, H, S, D, W) in
-    ``dtype``, for relative attention off and on and dropout 0 and 0.1."""
+    yardstick, not used by the port, pinned to the backend it takes
+    unpinned, ``sdpa_backend``) at ``shape`` (B, H, S, D, W) in ``dtype``,
+    for relative attention off and on and dropout 0 and 0.1. ``parent``:
+    another checkout's flash library, whose kernels are timed before and
+    after this one's (``parent_fwd``, ``parent_bwd``: the two runs)."""
+    from torch.nn.attention import sdpa_kernel
+
     from composer_tpu_torch.ops import flash_attention as fa
 
     seed = torch.tensor([5], dtype=torch.int32, device=device)
@@ -1518,27 +1582,41 @@ def flash_timings(device, card: str, dtype, shape, plain_repeats: int = 3) -> di
             q, k, v, e, dout = flash_inputs(dtype, use_rel, device, seed=4, shape=shape)
             kw = dict(scale=True, dropout_rate=rate, dropout_seed=seed if rate else None)
             out, lse = fa.flash_attention_forward(q, k, v, e, **kw)
-            times = {
-                "fwd": cuda_ms(lambda: fa.flash_attention_forward(q, k, v, e, **kw), 20),
-                "bwd": cuda_ms(lambda: fa.flash_attention_backward(
-                    q, k, v, e, out, lse, dout, **kw), 20),
-                "plain_fwd": cuda_ms(lambda: fa.flash_attention_reference(q, k, v, e, **kw),
-                                     plain_repeats),
-                "plain_bwd": cuda_ms(lambda: fa.flash_attention_backward_reference(
-                    q, k, v, e, out, lse, dout, **kw), plain_repeats),
+            directions = {
+                "fwd": lambda: fa.flash_attention_forward(q, k, v, e, **kw),
+                "bwd": lambda: fa.flash_attention_backward(q, k, v, e, out, lse, dout, **kw),
             }
+            parent_times = []
+            if parent is not None:
+                parent_times.append({d: with_library("flash_attention", parent,
+                                                     lambda: cuda_ms(fn, 20))
+                                     for d, fn in directions.items()})
+            times = {d: cuda_ms(fn, 20) for d, fn in directions.items()}
+            times["plain_fwd"] = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, e, **kw),
+                                         plain_repeats)
+            times["plain_bwd"] = cuda_ms(lambda: fa.flash_attention_backward_reference(
+                q, k, v, e, out, lse, dout, **kw), plain_repeats)
+            if parent is not None:
+                parent_times.append({d: with_library("flash_attention", parent,
+                                                     lambda: cuda_ms(fn, 20))
+                                     for d, fn in directions.items()})
+                for d in directions:
+                    times[f"parent_{d}"] = [run[d] for run in parent_times]
             for direction in ("fwd", "bwd"):
                 ms, by = flash_bound(shape, use_rel, direction == "bwd", dtype)
                 times[f"bound_{direction}"], times[f"bound_by_{direction}"] = ms, by
             if not use_rel and rate == 0.0:
                 qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
                 sdpa = torch.nn.functional.scaled_dot_product_attention
-                times["sdpa_fwd"] = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), 20)
-                times["sdpa_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-                    sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), dout), 20)
-                graph = sdpa(qs, ks, vs, is_causal=True)
-                times["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-                    graph, (qs, ks, vs), dout, retain_graph=True), 20)
+                backend = sdpa_backend(q, k, v)
+                times["sdpa_backend"] = backend.name
+                with sdpa_kernel([backend]):
+                    times["sdpa_fwd"] = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), 20)
+                    times["sdpa_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+                        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), dout), 20)
+                    graph = sdpa(qs, ks, vs, is_causal=True)
+                    times["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+                        graph, (qs, ks, vs), dout, retain_graph=True), 20)
                 del qs, ks, vs, graph
             result[(use_rel, rate)] = times
             print(f"flash {route} {str(dtype)[6:]} B,H,S,D,W={shape} rel={use_rel} "
@@ -1676,12 +1754,16 @@ def spec_vs_sequential(device) -> int:
 
 
 def parent_libraries(checkout) -> dict:
-    """``csrc/spec_decode.cu``, ``csrc/decode_wide.cu`` and
-    ``csrc/decode_wide_segment.cu`` of ``checkout`` (the parent commit,
-    unpacked with ``git archive``), each built with its own headers into
-    ``build/parent_<name>/`` (one nvcc each, at once) and loaded with this
-    checkout's argument types: their entry points keep their arguments (a
-    larger zeroed scratch serves the parent's wide layout)."""
+    """``csrc/spec_decode.cu``, ``csrc/decode_wide.cu``,
+    ``csrc/decode_wide_segment.cu`` and ``csrc/flash_attention.cu`` of
+    ``checkout`` (the parent commit, unpacked with ``git archive``), each
+    built with its own headers into ``build/parent_<name>/`` (one nvcc each,
+    at once) and loaded with this checkout's argument types: their entry
+    points keep their arguments (a larger zeroed scratch serves the parent's
+    wide layout; the flash entry points' first integer still picks the
+    route, 0 float32). Under ``"unchanged"``, the names whose source and
+    included headers read as this checkout's: their timings are compared
+    but not required to differ."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1699,9 +1781,22 @@ def parent_libraries(checkout) -> dict:
             getattr(lib, symbol).argtypes = argtypes
         return lib
 
-    names = ("spec_decode", "decode_wide", "decode_wide_segment")
+    def source(csrc, name):
+        texts, files = {}, [f"{name}.cu"]
+        while files:
+            file = files.pop()
+            if file not in texts:
+                texts[file] = (csrc / file).read_text()
+                files += re.findall(r'#include "([^"]+)"', texts[file])
+        return texts
+
+    names = ("spec_decode", "decode_wide", "decode_wide_segment", "flash_attention")
     with ThreadPoolExecutor(len(names)) as pool:
-        return dict(zip(names, pool.map(build, names)))
+        libraries = dict(zip(names, pool.map(build, names)))
+    parent_csrc = Path(checkout).resolve() / "composer_tpu_torch" / "csrc"
+    libraries["unchanged"] = {name for name in names
+                              if source(parent_csrc, name) == source(_build.CSRC, name)}
+    return libraries
 
 
 def with_library(name: str, lib, fn):
@@ -2706,7 +2801,7 @@ def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: floa
                   f"checkout's kernel on the same inputs (parent, this, this, parent): "
                   f"{parent_ms[0]:.2f}, {ours[0]:.2f}, {ours[1]:.2f}, {parent_ms[1]:.2f} ms; "
                   f"{min(parent_ms) / max(ours):.3f}x [{card}]", flush=True)
-            if not max(ours) < min(parent_ms):
+            if "decode_wide" not in parent["unchanged"] and not max(ours) < min(parent_ms):
                 raise AssertionError(f"wide B={batch}: not faster than the parent's kernel")
             if batch == 8:
                 f32 = dw.pack_weights_wide(flagship.state_dict(), config, torch.float32)
@@ -2940,7 +3035,7 @@ def wide_segment_timings(device, card: str, flagship, parent=None) -> dict:
               f"inputs (parent, this, this, parent): {parent_ms[0]:.3f}, {again[0]:.3f}, "
               f"{again[1]:.3f}, {parent_ms[1]:.3f} ms; {min(parent_ms) / max(again):.3f}x "
               f"[{card}]", flush=True)
-        if not max(again) < min(parent_ms):
+        if "decode_wide_segment" not in parent["unchanged"] and not max(again) < min(parent_ms):
             raise AssertionError("wide segment: not faster than the parent's kernel")
     clock = torch.zeros(len(dw.PHASES), dtype=torch.int64, device=device)
     kv, carry = dws.init_wide_segment_state(packed, config, 8, SERVE_CACHE)
@@ -3927,17 +4022,27 @@ def main() -> int:
     wide_training = embed2048_train_path(device, card, get_default())
     wide_2048_error = wide_2048_vs_plain(device)
     phase_done("phase 5c")
-    width_training = width_train_path(device, card, get_default())
+    parent = parent.result() if parent is not None else None
+    width_training = width_train_path(device, card, get_default(),
+                                      parent and parent["flash_attention"])
+    width_step_ms = width_training.pop("step_ms")
     phase_done("phase 5d")
     from composer_tpu_torch.ops import flash_attention as fa
 
-    flash_times = {variant: flash_timings(device, card, fa.DTYPES[variant[0]], shape,
-                                          plain_repeats=1 if shape[2] > 1024 else 3)
+    flash_times = {variant: flash_timings(
+        device, card, fa.DTYPES[variant[0]], shape, plain_repeats=1 if shape[2] > 1024 else 3,
+        parent=parent["flash_attention"] if parent and variant[0] == "tf32x3" else None)
                    for variant, shape in FLASH_TIMED.items()}
     phase_done("flash timings")
+    if parent and "flash_attention" not in parent["unchanged"]:
+        for depth in (64, 128):
+            for case, case_times in flash_times[("tf32x3", depth)].items():
+                for direction in ("fwd", "bwd"):
+                    if not case_times[direction] < min(case_times[f"parent_{direction}"]):
+                        raise AssertionError(f"flash f32 D={depth} (rel, dropout) {case} "
+                                             f"{direction}: not faster than the parent's kernel")
     spec_error = spec_vs_plain(device)
     spec_vs_sequential(device)
-    parent = parent.result() if parent is not None else None
     spec = spec_path(device, card, training["restored"], parent)
     segment_error = segment_vs_plain(device)
     segment = segment_timings(device, card)
@@ -3969,14 +4074,14 @@ def main() -> int:
     flash_launches = {("mma", 16): training["launches"][("mma", 16)],
                       ("mma", 64): flagship_training["launches"],
                       ("mma", 128): wide_training["launches"],
-                      ("scalar", 16): training["launches"][("scalar", 16)], **width_training}
+                      ("tf32x3", 16): training["launches"][("tf32x3", 16)], **width_training}
     # One entry a direction for each (dtype, head_dim) built: max_abs_err is
     # absolute, beside its tensor's scale (err_scale) and, for bf16, the
     # largest row error of the row's norm (row_rel_err); times at
     # FLASH_TIMED's shape, bias off, dropout 0.
     for variant in fa.VARIANTS:
         dtype = str(fa.DTYPES[variant[0]])[6:]
-        source = "flash_attention_mma.cuh" if variant[0] == "mma" else "flash_attention.cu"
+        source = "flash_attention_mma.cuh" if variant[0] == "mma" else "flash_attention_tf32.cuh"
         times = flash_times[variant][(False, 0.0)]
         for index, (direction, replaces) in enumerate((
                 ("fwd", "composer_tpu/ops/pallas_attention.py:235"),
@@ -3992,7 +4097,9 @@ def main() -> int:
                 "row_rel_err": check.get("row_rel_err"), "ms": times[direction],
                 "plain_ms": times[f"plain_{direction}"], "bound_ms": times[f"bound_{direction}"],
                 "bound_by": times[f"bound_by_{direction}"],
-                "library_ms": times[f"sdpa_{direction}"], "cluster": None,
+                "library_ms": times[f"sdpa_{direction}"], "library": times["sdpa_backend"],
+                "parent_ms": times.get(f"parent_{direction}"),
+                "train_step_ms": width_step_ms.get(variant), "cluster": None,
                 "http_launches": http[f"flash_{direction} {variant[0]} {variant[1]}"],
                 "cli_launches": cli[f"flash_{direction} {variant[0]} {variant[1]}"]})
     kernels.append({

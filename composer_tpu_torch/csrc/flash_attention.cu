@@ -64,29 +64,36 @@
 //   accumulators of dK, dV, dE and dq (4 x 64 floats a thread) exceed the
 //   255 registers, so two warps share a key group, each owning half of the
 //   columns (bwd_split; 8 warps a block).
-// * float32: the scalar kernels below (flash_forward_kernel,
-//   flash_backward_kernel; the f32 parity tests and f32 training). A row of
-//   a 64-row tile is split over D/16 neighbouring threads of a warp, 16
-//   columns each (flash_row_threads; one thread at D=16), which sum their
-//   partial dot products with shuffles: the registers a thread holds do not
-//   grow with D. float32 FMAs on tiles staged in shared memory (rows padded
-//   to D+4 floats so that the per-thread rows of the relative band are read
-//   as conflict-free 16-byte loads); bound by issue rate, far above the
-//   card's memory bound (see PERF.md).
-//   - Forward, grid (S/64, BH): the threads of row i keep their slice of
-//     q_i and of the output row, and the running max and sum, in registers
-//     and walk the k-tiles at or before the diagonal (online softmax). The
-//     relative band a tile needs is 128 rows of E, staged beside the K and
-//     V tiles; element (i, j) reads band row 63-i+j.
-//   - Backward, grid (S/64, BH), FlashAttention-2 order: the threads of key
-//     j own its slices of k, v, dK and dV in registers and walk the q-tiles
-//     at or after the diagonal, recomputing p from lse. ds goes to shared
-//     memory; then the threads of query row i form their slice of its dq row
-//     and add it to dq with float32 atomics, and those of band rows m and
-//     m + 64 their slices of dE: the hi row leaves with atomics (no later
-//     q-tile reaches it), the lo row is carried in registers, since it is
-//     the same E row as the next q-tile's hi row m + 64.
-//   At D=128 the shared memory of the backward is about 182 KB.
+// * float32: the split-TF32 tensor-core kernels of flash_attention_tf32.cuh
+//   (flash_forward_tf32_kernel, replacing _flash_kernel;
+//   flash_backward_tf32_kernel, replacing _flash_bwd_kernel; route
+//   "tf32x3"). Every product, QK^T, the band q.E, PV and the backward's
+//   recomputed S and band, dO V^T, P^T dO, dS K, dS E, dS^T Q and dE, is
+//   mma.sync.m16n8k8 in TF32 three times: each operand x, P and dS
+//   included, splits into big = tf32(x) and small = tf32(x - big) (rounded
+//   as cvt.rna.tf32.f32 rounds, by two integer operations), and big small +
+//   small big + big big is accumulated in float32 in that order, which keeps
+//   float32's accuracy (one TF32 product misses the float32 tolerance by
+//   4-12x). What bounds them: three tensor-core products and the splits for
+//   each float32 one (the bound counts the products at a third of the 495
+//   TFLOP/s TF32 rate), and the same work around each score as the bf16
+//   kernels. The design is the bf16 one with float32 tiles at pitch D+4
+//   (rows g apart, and rows 2t apart, land on distinct banks) read by 32-bit
+//   ld.shared: 4 warps of 16 rows, online softmax in exp2, one Philox call a
+//   lane per 8-key tile handed on through a per-warp buffer, the band as one
+//   16 x 80 product a warp read back skewed, FlashAttention-2's backward with
+//   dK and dV in registers, dq by 4-float atomics, each dE row sent once.
+//   What float32 changes: an operand from a C fragment (P, dS^T) is used as
+//   an A fragment as it lies by permuting the depth of each 8-wide step (2t
+//   as t, 2t+1 as t+4), its B operand reading rows 2t and 2t+1; Q is staged
+//   and split per k-step instead of held in registers; the forward waits for
+//   K (with the band) and V apart, single-buffered, so the next K lands
+//   during softmax and PV. The backward's accumulators take two warps a key
+//   group from D=64 (8 warps a block); the group's warp 0 forms S^T and its
+//   warp 1 dP^T, exchanged through shared memory, except at D=128 with the
+//   bias, where the 32 KB do not fit and both form both. Its staged dS
+//   shares its bytes with the q.E staging (one more barrier), and at D=128
+//   its q-tile is single-buffered: K, V, Q, dO and the band take 198 KB.
 //
 // Blocks of different (b, k-tile) share dq and dE rows, which the TPU
 // accumulated in place only because its grid ran in order; the atomics make
@@ -102,7 +109,7 @@
 
 namespace {
 
-constexpr int kBlock = 64;          // rows per tile (scalar kernels: one thread per row)
+constexpr int kBlock = 64;          // rows per tile
 constexpr int kBand = 2 * kBlock;   // relative-table rows one tile can need
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxSharedBytes = 232448;
@@ -139,317 +146,10 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   return ctr;
 }
 
-__device__ __forceinline__ unsigned word(const uint4& r, int c) {
-  return c == 0 ? r.x : c == 1 ? r.y : c == 2 ? r.z : r.w;
-}
-
-// Dropout multiplier of element (qpos, kpos) of row block bh.
-__device__ __forceinline__ float keep_multiplier(const Args& a, unsigned seed, int bh,
-                                                 int qpos, int kpos) {
-  const uint4 r = philox4x32_10(make_uint4((unsigned)kpos >> 2, (unsigned)qpos,
-                                           (unsigned)bh, 0u), make_uint2(seed, 0u));
-  return word(r, kpos & 3) >= a.threshold ? a.keep_scale : 0.f;
-}
-
-// The float32 kernels split each row's D columns over L = D / kSlice
-// neighbouring threads of a warp, kSlice columns each (flash_row_threads).
-constexpr int kSlice = 16;
-
-template <int D>
-__host__ __device__ constexpr int flash_row_threads() {
-  return D / kSlice;
-}
-
-// The sum of x over the L neighbouring lanes that share a row.
-template <int L>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = L / 2; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float dot_reg(const float (&x)[kSlice], const float* row) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < kSlice; d += 4) {
-    const float4 y = *reinterpret_cast<const float4*>(row + d);
-    acc = fmaf(x[d], y.x, acc);
-    acc = fmaf(x[d + 1], y.y, acc);
-    acc = fmaf(x[d + 2], y.z, acc);
-    acc = fmaf(x[d + 3], y.w, acc);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float dot_smem(const float* x, const float* row) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < kSlice; d += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(x + d);
-    const float4 b = *reinterpret_cast<const float4*>(row + d);
-    acc = fmaf(a.x, b.x, acc);
-    acc = fmaf(a.y, b.y, acc);
-    acc = fmaf(a.z, b.z, acc);
-    acc = fmaf(a.w, b.w, acc);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ void axpy(float (&acc)[kSlice], float w, const float* row) {
-#pragma unroll
-  for (int d = 0; d < kSlice; d += 4) {
-    const float4 y = *reinterpret_cast<const float4*>(row + d);
-    acc[d] = fmaf(w, y.x, acc[d]);
-    acc[d + 1] = fmaf(w, y.y, acc[d + 1]);
-    acc[d + 2] = fmaf(w, y.z, acc[d + 2]);
-    acc[d + 3] = fmaf(w, y.w, acc[d + 3]);
-  }
-}
-
-// rows x D floats from global (row-major, contiguous) into shared
-// memory as float32 rows of pitch D+4.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int rows) {
-  constexpr int P = D + 4;
-  for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-    dst[(idx / D) * P + idx % D] = src[idx];
-  }
-}
-
-// The 128 band rows E[first .. first+127] of one head (zeros outside [0, W)).
-template <int D>
-__device__ __forceinline__ void load_band(float* dst, const float* e_head, int first, int window) {
-  constexpr int P = D + 4;
-  for (int idx = threadIdx.x; idx < kBand * D; idx += blockDim.x) {
-    const int row = first + idx / D;
-    dst[(idx / D) * P + idx % D] =
-        (row >= 0 && row < window) ? e_head[(size_t)row * D + idx % D] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBlock * flash_row_threads<D>()) flash_forward_kernel(const Args a) {
-  constexpr int P = D + 4, L = flash_row_threads<D>();
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + kBlock * P;
-  float* es = vs + kBlock * P;
-
-  const int nb = a.seq / kBlock;
-  const int ib = nb - 1 - (int)blockIdx.x;  // the longest rows start first
-  const int bh = blockIdx.y, h = bh % a.heads;
-  // Row i of the tile, columns [col, col + kSlice) of it.
-  const int i = threadIdx.x / L, col = (threadIdx.x % L) * kSlice, qpos = ib * kBlock + i;
-  const size_t base = (size_t)bh * a.seq * D;
-  const float* q = static_cast<const float*>(a.q) + base;
-  const float* k = static_cast<const float*>(a.k) + base;
-  const float* v = static_cast<const float*>(a.v) + base;
-  const float* e_head =
-      a.use_rel ? static_cast<const float*>(a.e) + (size_t)h * a.window * D : nullptr;
-  const unsigned seed = a.dropout ? (unsigned)*a.seed : 0u;
-
-  float qr[kSlice], acc[kSlice];
-#pragma unroll
-  for (int d = 0; d < kSlice; ++d) {
-    qr[d] = q[(size_t)qpos * D + col + d];
-    acc[d] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
-  for (int jb = 0; jb <= ib; ++jb) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D>(ks, k + (size_t)jb * kBlock * D, kBlock);
-    load_tile<D>(vs, v + (size_t)jb * kBlock * D, kBlock);
-    if (a.use_rel) load_band<D>(es, e_head, a.window - kBlock - (ib - jb) * kBlock, a.window);
-    __syncthreads();
-
-    float s[kBlock];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBlock; ++j) {
-      float x = dot_reg(qr, ks + j * P + col);
-      if (a.use_rel) x += dot_reg(qr, es + (kBlock - 1 - i + j) * P + col);
-      x = row_sum<L>(x) * a.scale;
-      if (jb == ib && j > i) x = kNegInf;
-      s[j] = x;
-      tile_max = fmaxf(tile_max, x);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float correction = expf(m - m_new);
-    l *= correction;
-#pragma unroll
-    for (int d = 0; d < kSlice; ++d) acc[d] *= correction;
-#pragma unroll
-    for (int j0 = 0; j0 < kBlock; j0 += 4) {
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (a.dropout) {
-        bits = philox4x32_10(make_uint4((unsigned)(jb * kBlock + j0) >> 2, (unsigned)qpos,
-                                        (unsigned)bh, 0u), make_uint2(seed, 0u));
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float p = expf(s[j0 + c] - m_new);
-        l += p;
-        if (a.dropout) p *= word(bits, c) >= a.threshold ? a.keep_scale : 0.f;
-        axpy(acc, p, vs + (j0 + c) * P + col);
-      }
-    }
-    m = m_new;
-  }
-
-  float* out = static_cast<float*>(a.out) + base + (size_t)qpos * D + col;
-  const float inv_l = 1.f / l;
-#pragma unroll
-  for (int d = 0; d < kSlice; ++d) out[d] = acc[d] * inv_l;
-  if (col == 0) a.lse[(size_t)bh * a.seq + qpos] = m + logf(l);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBlock * flash_row_threads<D>()) flash_backward_kernel(const Args a) {
-  constexpr int P = D + 4, L = flash_row_threads<D>();
-  constexpr int DS = kBlock + 1;  // ds pitch: row and column reads conflict-free
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* dos = qs + kBlock * P;
-  float* ks = dos + kBlock * P;
-  float* es = ks + kBlock * P;
-  float* ds = es + kBand * P;
-  float* lse_s = ds + kBlock * DS;
-  float* delta_s = lse_s + kBlock;
-
-  const int nb = a.seq / kBlock;
-  const int jb = blockIdx.x;  // the longest columns start first
-  const int bh = blockIdx.y, h = bh % a.heads;
-  // Row r of the tile (key r in phase 1, query r in phase 2, band rows r and
-  // r + 64 in phase 3), columns [col, col + kSlice) of it.
-  const int tid = threadIdx.x, r = tid / L, col = (tid % L) * kSlice, kpos = jb * kBlock + r;
-  const int W = a.window;
-  const size_t base = (size_t)bh * a.seq * D;
-  const float* q = static_cast<const float*>(a.q) + base;
-  const float* k = static_cast<const float*>(a.k) + base;
-  const float* v = static_cast<const float*>(a.v) + base;
-  const float* dout = static_cast<const float*>(a.dout) + base;
-  const float* e_head = a.use_rel ? static_cast<const float*>(a.e) + (size_t)h * W * D : nullptr;
-  float* de_head = a.use_rel ? a.de + (size_t)h * W * D : nullptr;
-  const unsigned seed = a.dropout ? (unsigned)*a.seed : 0u;
-
-  // carry: dE of band row r of the lo half (E row W - 64 - 64t + r), which
-  // is band row r + 64 of the hi half of the next q-tile.
-  float kr[kSlice], vr[kSlice], dk[kSlice], dv[kSlice], carry[kSlice];
-#pragma unroll
-  for (int d = 0; d < kSlice; ++d) {
-    kr[d] = k[(size_t)kpos * D + col + d];
-    vr[d] = v[(size_t)kpos * D + col + d];
-    dk[d] = 0.f;
-    dv[d] = 0.f;
-    carry[d] = 0.f;
-  }
-  load_tile<D>(ks, k + (size_t)jb * kBlock * D, kBlock);
-
-  for (int ib = jb; ib < nb; ++ib) {
-    const int t = ib - jb;
-    __syncthreads();  // the previous q-tile is consumed
-    load_tile<D>(qs, q + (size_t)ib * kBlock * D, kBlock);
-    load_tile<D>(dos, dout + (size_t)ib * kBlock * D, kBlock);
-    if (tid < kBlock) {
-      lse_s[tid] = a.lse[(size_t)bh * a.seq + ib * kBlock + tid];
-      delta_s[tid] = a.delta[(size_t)bh * a.seq + ib * kBlock + tid];
-    }
-    if (a.use_rel) load_band<D>(es, e_head, W - kBlock - t * kBlock, W);
-    __syncthreads();
-
-    // Phase 1, row = key: p, ds, and this key's dK and dV.
-    for (int i = 0; i < kBlock; ++i) {
-      const float* qrow = qs + i * P + col;
-      const float* dorow = dos + i * P + col;
-      float x = dot_reg(kr, qrow);
-      if (a.use_rel) x += dot_smem(qrow, es + (kBlock - 1 - i + r) * P + col);
-      x = row_sum<L>(x) * a.scale;
-      const float p = (t == 0 && r > i) ? 0.f : expf(x - lse_s[i]);
-      float dp = row_sum<L>(dot_reg(vr, dorow));
-      float p_dv = p;
-      if (a.dropout) {
-        const float mult = keep_multiplier(a, seed, bh, ib * kBlock + i, kpos);
-        dp *= mult;
-        p_dv = p * mult;
-      }
-      const float dsv = p * (dp - delta_s[i]);
-      axpy(dv, p_dv, dorow);
-      axpy(dk, dsv, qrow);
-      if (col == 0) ds[i * DS + r] = dsv;
-    }
-    __syncthreads();
-
-    // Phase 2, row = query: dq_r = scale * sum_j ds_rj (k_j + E_band[63-r+j]).
-    {
-      float g[kSlice];
-#pragma unroll
-      for (int d = 0; d < kSlice; ++d) g[d] = 0.f;
-      for (int j = 0; j < kBlock; ++j) {
-        const float w = ds[r * DS + j];
-        axpy(g, w, ks + j * P + col);
-        if (a.use_rel) axpy(g, w, es + (kBlock - 1 - r + j) * P + col);
-      }
-      float* dq_row = a.dq + base + (size_t)(ib * kBlock + r) * D + col;
-#pragma unroll
-      for (int d = 0; d < kSlice; ++d) atomicAdd(dq_row + d, a.scale * g[d]);
-    }
-    if (a.use_rel) {
-      // Band row m = 63-i+j collects scale * sum ds_ij q_i. Rows m >= 64
-      // ("hi", E rows W - 64t + m - 64) are complete after this q-tile: the
-      // hi row r + 64 plus the carried lo row r of the previous tile leaves
-      // now. Rows m < 64 ("lo", E rows W - 64 - 64t + m) are carried on.
-#pragma unroll
-      for (int half = 1; half >= 0; --half) {
-        const int mm = r + half * kBlock;
-        float g[kSlice];
-#pragma unroll
-        for (int d = 0; d < kSlice; ++d) g[d] = 0.f;
-        const int i0 = max(0, kBlock - 1 - mm), i1 = min(kBlock - 1, 2 * kBlock - 2 - mm);
-        for (int i = i0; i <= i1; ++i) axpy(g, ds[i * DS + mm - (kBlock - 1) + i], qs + i * P + col);
-        if (half) {
-          const int row = W - t * kBlock + r;  // none for the diagonal tile
-          if (row < W) {
-            float* dst = de_head + (size_t)row * D + col;
-#pragma unroll
-            for (int d = 0; d < kSlice; ++d) atomicAdd(dst + d, fmaf(a.scale, g[d], carry[d]));
-          }
-        } else {
-#pragma unroll
-          for (int d = 0; d < kSlice; ++d) carry[d] = a.scale * g[d];
-        }
-      }
-    }
-  }
-  if (a.use_rel) {
-    const int row = W - kBlock - (nb - 1 - jb) * kBlock + r;
-    if (row >= 0 && row < W) {
-      float* dst = de_head + (size_t)row * D + col;
-#pragma unroll
-      for (int d = 0; d < kSlice; ++d) atomicAdd(dst + d, carry[d]);
-    }
-  }
-
-  float* dk_out = static_cast<float*>(a.dk) + base + (size_t)kpos * D + col;
-  float* dv_out = static_cast<float*>(a.dv) + base + (size_t)kpos * D + col;
-#pragma unroll
-  for (int d = 0; d < kSlice; ++d) {
-    dk_out[d] = a.scale * dk[d];
-    dv_out[d] = dv[d];
-  }
-}
-
-template <int D> constexpr size_t forward_smem() {
-  return sizeof(float) * (size_t)(2 * kBlock + kBand) * (D + 4);
-}
-template <int D> constexpr size_t backward_smem() {
-  return sizeof(float) * ((size_t)(3 * kBlock + kBand) * (D + 4) + kBlock * (kBlock + 1) +
-                          2 * kBlock);
-}
-
-// The bf16 tensor-core kernels; they share Args, the constants and Philox
-// with the scalar kernels above.
+// The bf16 tensor-core kernels, then the float32 ones (split TF32), which
+// share the bf16 file's staging, atomics and dropout constants.
 #include "flash_attention_mma.cuh"
+#include "flash_attention_tf32.cuh"
 
 template <typename K>
 int launch(K kernel, int threads, size_t smem, const Args& a, cudaStream_t stream) {
@@ -471,7 +171,7 @@ int forward_at(int mma, const Args& a, cudaStream_t stream) {
     return launch(flash_forward_mma_kernel<D>, kMmaThreads, forward_mma_smem<D>(a.use_rel), a,
                   stream);
   }
-  return launch(flash_forward_kernel<D>, kBlock * flash_row_threads<D>(), forward_smem<D>(), a,
+  return launch(flash_forward_tf32_kernel<D>, kF32Threads, forward_f32_smem<D>(a.use_rel), a,
                 stream);
 }
 
@@ -481,8 +181,8 @@ int backward_at(int mma, const Args& a, cudaStream_t stream) {
     return launch(flash_backward_mma_kernel<D>, bwd_threads<D>(), backward_mma_smem<D>(a.use_rel),
                   a, stream);
   }
-  return launch(flash_backward_kernel<D>, kBlock * flash_row_threads<D>(), backward_smem<D>(), a,
-                stream);
+  return launch(flash_backward_tf32_kernel<D>, bwd_f32_threads<D>(),
+                backward_f32_smem<D>(a.use_rel), a, stream);
 }
 
 int forward(int mma, int depth, const Args& a, cudaStream_t stream) {

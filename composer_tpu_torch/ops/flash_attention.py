@@ -8,20 +8,26 @@ header states what they compute and how. ``relative_flash_attention`` keeps
 the JAX signature and the ``[B, H, S, D]`` layout.
 
 Two routes, one fixed table (``kernel_variant``), each built at head_dim
-16, 32, 64 and 128 (``BUILT_HEAD_DIMS``): bf16 takes the tensor-core
-kernels (``csrc/flash_attention_mma.cuh``), the training path's type;
-float32 the scalar kernels, which the float32 parity tests and float32
-training use. Any other head_dim up to 128 is zero-padded to the next built
-one (``padded_head_dim``, ``pad_head_dim``), as the JAX wrapper pads the
-depth to 128 lanes, with the softmax scale of the true depth. float16,
-float64 and head_dim above 128 raise (ROADMAP Queue 2 item 1b).
+16, 32, 64 and 128 (``BUILT_HEAD_DIMS``), both on the tensor cores: bf16
+(``"mma"``) takes ``csrc/flash_attention_mma.cuh``, the training path's
+type; float32 (``"tf32x3"``) takes ``csrc/flash_attention_tf32.cuh``, which
+forms every float32 product as three TF32 products (split TF32), the route
+of the float32 parity tests and of float32 training. Any other head_dim up
+to 128 is zero-padded to the next built one (``padded_head_dim``,
+``pad_head_dim``), as the JAX wrapper pads the depth to 128 lanes, with the
+softmax scale of the true depth. float16, float64 and head_dim above 128
+raise (ROADMAP Queue 2 item 1b).
 
 Beside the kernels, in this module:
 
 * ``flash_attention_reference`` / ``flash_attention_backward_reference``:
   the plain PyTorch version of each direction. They take the same dropout
   bits (``dropout_multiplier``) and mask with the kernel's -1e30, so the
-  kernel and its plain version agree to summation order.
+  kernel and its plain version agree to summation order. ``product``
+  replaces every matrix product (tests pass ``tf32x3_matmul``).
+* ``split_tf32`` / ``tf32x3_matmul``: the float32 kernels' arithmetic on
+  the CPU, for the tests only: the TF32 rounding of ``cvt.rna.tf32.f32``
+  and the three-product sum in the kernels' order.
 * ``flash_attention_forward`` / ``flash_attention_backward``: the wrappers.
   A CPU tensor runs the plain version; a CUDA tensor launches the kernel
   (counted by ``(route, built head_dim)`` in
@@ -41,7 +47,7 @@ import ctypes
 
 import torch
 
-from composer_tpu_torch.ops.attention import relative_logits_full
+from composer_tpu_torch.ops.attention import skew_relative_logits
 from composer_tpu_torch.ops.philox import philox4x32_10
 
 NEG_INF = -1e30
@@ -49,8 +55,9 @@ KERNEL_BLOCK = 64  # rows per tile in the kernels; S must be a multiple
 # The head_dims each route is built for; the wrappers pad any other up to
 # the next of them.
 BUILT_HEAD_DIMS = (16, 32, 64, 128)
-# dtype -> route: "mma" the bf16 tensor-core pair, "scalar" the float32 one.
-ROUTES = {torch.bfloat16: "mma", torch.float32: "scalar"}
+# dtype -> route: "mma" the bf16 tensor-core pair, "tf32x3" the float32 one
+# (each float32 product as three TF32 products).
+ROUTES = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
 DTYPES = {route: dtype for dtype, route in ROUTES.items()}
 # (dtype, head_dim) -> the kernels built for it.
 KERNEL_VARIANTS = {(dtype, depth): route for dtype, route in ROUTES.items()
@@ -59,7 +66,7 @@ UNBUILT = "ROADMAP Queue 2 item 1b (flash kernels in float16, float64 and at hea
 
 
 def kernel_variant(dtype, depth: int) -> str:
-    """The route (``"mma"`` or ``"scalar"``) of the kernels built for
+    """The route (``"mma"`` or ``"tf32x3"``) of the kernels built for
     ``dtype`` at ``depth``; ``ValueError`` naming what is built for anything
     else (a head_dim between the built ones goes through
     ``padded_head_dim`` first)."""
@@ -136,6 +143,28 @@ def dropout_multiplier(seed: int, rate: float, batch: int, heads: int, seq: int,
     return keep.to(dtype) * keep_scale
 
 
+def split_tf32(x: torch.Tensor):
+    """``(big, small)`` of float32 ``x`` as the float32 kernels split an
+    operand: ``big`` is x rounded to TF32 like ``cvt.rna.tf32.f32`` (to
+    nearest, ties away from zero, 10 mantissa bits: ``(bits + 0x1000) &
+    ~0x1FFF``), ``small`` the same rounding of ``x - big``."""
+    def tf32(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = tf32(x)
+    return big, tf32(x - big)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the float32 kernels form it: three TF32 products, summed
+    in float32 smallest first (``big_a small_b + small_a big_b + big_a
+    big_b``); ``small_a small_b`` is dropped."""
+    a_big, a_small = split_tf32(a)
+    b_big, b_small = split_tf32(b)
+    return (a_big @ b_small + a_small @ b_big) + a_big @ b_big
+
+
 def _seed_int(seed) -> int:
     return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
 
@@ -149,14 +178,21 @@ def softmax_scale(scale, depth: int) -> float:
     return depth ** -0.5 if scale else 1.0
 
 
-def _scores(q, k, rel_embedding, scale):
+def _band(rel_embedding, seq: int, dtype, compute):
+    """The table's rows of distances ``seq - 1 .. 0``, ``[H, seq, D]``."""
+    _check_window(seq, rel_embedding)
+    return rel_embedding.to(dtype).to(compute)[:, rel_embedding.shape[1] - seq:]
+
+
+def _scores(q, k, rel_embedding, scale, product=torch.matmul):
     """Scaled, causally masked scores ``[B, H, S, S]`` in the compute type
     (float32 for float32 and bf16 inputs, float64 for float64)."""
     compute = torch.promote_types(q.dtype, torch.float32)
     qf, kf = q.to(compute), k.to(compute)
-    scores = qf @ kf.transpose(-1, -2)
+    scores = product(qf, kf.transpose(-1, -2))
     if rel_embedding is not None:
-        scores = scores + relative_logits_full(qf, rel_embedding.to(q.dtype).to(compute))
+        band = _band(rel_embedding, q.shape[2], q.dtype, compute)
+        scores = scores + skew_relative_logits(product(qf, band.transpose(-1, -2)))
     factor = softmax_scale(scale, q.shape[-1])
     if factor != 1.0:
         scores = scores * factor
@@ -171,31 +207,34 @@ def _check_window(seq: int, rel_embedding):
 
 
 def flash_attention_reference(q, k, v, rel_embedding=None, *, scale=True,
-                              dropout_rate: float = 0.0, dropout_seed=None):
+                              dropout_rate: float = 0.0, dropout_seed=None,
+                              product=torch.matmul):
     """Plain version of the forward kernel: ``(out, lse)``. ``scale``: True,
-    False or the factor itself (``softmax_scale``).
+    False or the factor itself (``softmax_scale``); ``product`` forms every
+    matrix product.
 
     ``out`` is ``[B, H, S, D]`` in q's dtype, ``lse`` the ``[B, H, S]``
     log-sum-exp of each row's scores in the compute type. Dropout multiplies
     the normalised probabilities by ``dropout_multiplier``.
     """
     _check_window(q.shape[2], rel_embedding)
-    scores = _scores(q, k, rel_embedding, scale)
+    scores = _scores(q, k, rel_embedding, scale, product)
     lse = torch.logsumexp(scores, dim=-1)
     p = torch.exp(scores - lse[..., None])
     if dropout_rate > 0.0:
         batch, heads, seq, _ = q.shape
         p = p * dropout_multiplier(_seed_int(dropout_seed), dropout_rate, batch, heads,
                                    seq, p.dtype, q.device)
-    out = p @ v.to(p.dtype)
+    out = product(p, v.to(p.dtype))
     return out.to(q.dtype), lse
 
 
 def flash_attention_backward_reference(q, k, v, rel_embedding, out, lse, dout, *,
                                        scale=True, dropout_rate: float = 0.0,
-                                       dropout_seed=None):
+                                       dropout_seed=None, product=torch.matmul):
     """Plain version of the backward kernel: ``(dq, dk, dv, dE)`` (dE is None
-    without the relative table), from the forward's ``out`` and ``lse``.
+    without the relative table), from the forward's ``out`` and ``lse``;
+    ``product`` forms every matrix product.
 
     With ``P = exp(scores - lse)``, dropout multiplier ``M`` and
     ``delta = rowsum(dout * out)``: ``ds = P * (M * dout v^T - delta)``,
@@ -204,12 +243,12 @@ def flash_attention_backward_reference(q, k, v, rel_embedding, out, lse, dout, *
     (c the softmax scale).
     """
     batch, heads, seq, depth = q.shape
-    scores = _scores(q, k, rel_embedding, scale)
+    scores = _scores(q, k, rel_embedding, scale, product)
     compute = scores.dtype
     qf, kf, vf, dof = (t.to(compute) for t in (q, k, v, dout))
     p = torch.exp(scores - lse.to(compute)[..., None])
     delta = (dof * out.to(compute)).sum(-1)
-    dp = dof @ vf.transpose(-1, -2)
+    dp = product(dof, vf.transpose(-1, -2))
     p_dv = p
     if dropout_rate > 0.0:
         mult = dropout_multiplier(_seed_int(dropout_seed), dropout_rate, batch, heads, seq,
@@ -218,22 +257,22 @@ def flash_attention_backward_reference(q, k, v, rel_embedding, out, lse, dout, *
         p_dv = p * mult
     ds = p * (dp - delta[..., None])
     c = softmax_scale(scale, depth)
-    dv = p_dv.transpose(-1, -2) @ dof
-    dq = c * (ds @ kf)
-    dk = c * (ds.transpose(-1, -2) @ qf)
+    dv = product(p_dv.transpose(-1, -2), dof)
+    dq = c * product(ds, kf)
+    dk = c * product(ds.transpose(-1, -2), qf)
     de = None
     if rel_embedding is not None:
         window = rel_embedding.shape[1]
-        e_slice = rel_embedding.to(q.dtype).to(compute)[:, window - seq:]  # distances S-1..0
+        e_slice = _band(rel_embedding, seq, q.dtype, compute)  # distances S-1..0
         # band[i, m] = ds[i, j] with j = i - (S-1-m): the skew run backwards.
         rows = torch.arange(seq, device=q.device)[:, None]
         cols = torch.arange(seq, device=q.device)[None, :]
         j = cols - (seq - 1) + rows
         band = torch.gather(ds, -1, j.clamp(min=0).expand(batch, heads, seq, seq))
         band = band * (j >= 0).to(compute)
-        dq = dq + c * torch.einsum("bhim,hmd->bhid", band, e_slice)
+        dq = dq + c * product(band, e_slice)
         de = torch.zeros(rel_embedding.shape, dtype=compute, device=q.device)
-        de[:, window - seq:] = c * torch.einsum("bhim,bhid->hmd", band, qf)
+        de[:, window - seq:] = c * product(band.transpose(-1, -2), qf).sum(0)
         de = de.to(q.dtype)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), de
 

@@ -56,7 +56,7 @@ def _inputs(dtype, use_rel, device, B=2, H=2, S=256, D=16, W=512, seed=0):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_kernels_match_plain_version(cuda_device, dtype, depth, use_rel, rate):
     """Each route of ``kernel_variant`` at every built head_dim (16, 32, 64,
-    128: the float32 scalar kernels, the bf16 tensor-core kernels), and two
+    128: the float32 split-TF32 kernels, the bf16 ones), and two
     padded widths (bf16 48 runs the D=64 kernels, float32 24 the D=32 ones),
     held by ``chip_smoke.py``'s phase-4 limits (``flash_errors``: float32 O
     and lse 2e-4, gradients 5e-4 of scale; bf16 lse 1e-3, other outputs 2%
@@ -141,6 +141,30 @@ def test_one_trainer_step_on_the_card(cuda_device):
     for name, grad in cpu_grads.items():
         scale = float(grad.abs().max())
         assert float((gpu_grads[name] - grad).abs().max()) <= F32_GRAD_TOL * scale + 1e-7, name
+
+
+def test_one_float32_trainer_step_at_head_dim_64(cuda_device):
+    """One float32 train step (mixed precision off: relative attention,
+    dropout, head_dim 64) runs through the split-TF32 kernels at head_dim 64,
+    one launch per layer each way, with a finite loss and finite
+    gradients."""
+    config = TransformerConfig(vocab_size=64, embed_dim=128, window_size=128, num_layers=2,
+                               num_heads=2, use_relative_attention=True,
+                               attention_dropout_rate=0.1, residual_dropout_rate=0.1,
+                               use_pallas_attention=True, dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    x, y = rng.integers(0, 64, (2, 128)), rng.integers(0, 64, (2, 128))
+    trainer = Trainer(Transformer(config), ModelType.TRANSFORMER, 1e-3, device=cuda_device)
+    state = trainer.init_state(2, 128)
+    before = (fa.flash_attention_forward.launches[("tf32x3", 64)],
+              fa.flash_attention_backward.launches[("tf32x3", 64)])
+    loss = float(trainer.train_step(state, x, y, trainer.make_dropout_generator())["loss"])
+    after = (fa.flash_attention_forward.launches[("tf32x3", 64)],
+             fa.flash_attention_backward.launches[("tf32x3", 64)])
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
+    assert np.isfinite(loss)
+    assert all(bool(torch.isfinite(p.grad).all()) for p in state.model.parameters()
+               if p.grad is not None)
 
 
 def test_one_bf16_trainer_step_at_head_dim_64(cuda_device):

@@ -154,7 +154,7 @@ def test_routing_rule():
     with pytest.raises(ValueError, match="head_dim"):
         fa._kernel_args(x8, None, 0.0, None)  # the kernels take only built widths
     padded = fa.pad_head_dim(fa.padded_head_dim(x8.dtype, 8), x8)[0]
-    assert fa._kernel_args(padded, None, 0.0, None)[0] == ("scalar", 16)
+    assert fa._kernel_args(padded, None, 0.0, None)[0] == ("tf32x3", 16)
     with pytest.raises(ValueError, match="head_dim 192"):
         fa.padded_head_dim(torch.float32, 192)
     fa._kernel_args(qk(256)[0], None, 0.0, None)  # head_dim 16 passes
@@ -165,14 +165,14 @@ def test_routing_rule():
 
 
 def test_kernel_variant_table():
-    """The fixed routing table: bf16 takes the tensor-core kernels and
-    float32 the scalar ones, each built at head_dim 16, 32, 64 and 128;
+    """The fixed routing table: bf16 takes the bf16 tensor-core kernels and
+    float32 the split-TF32 ones, each built at head_dim 16, 32, 64 and 128;
     other head_dims up to 128 pad to the next built one (8 to 16, 48 to 64,
     96 to 128); float16, float64 and head_dim above 128 raise naming what is
     built and the ROADMAP item."""
     for depth in (16, 32, 64, 128):
         assert fa.kernel_variant(torch.bfloat16, depth) == "mma"
-        assert fa.kernel_variant(torch.float32, depth) == "scalar"
+        assert fa.kernel_variant(torch.float32, depth) == "tf32x3"
         for dtype in (torch.bfloat16, torch.float32):
             assert fa.padded_head_dim(dtype, depth) == depth
     for depth, width in ((1, 16), (8, 16), (17, 32), (24, 32), (48, 64), (96, 128),
@@ -189,10 +189,10 @@ def test_kernel_variant_table():
             fa.padded_head_dim(dtype, depth)
     x = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16)
     assert fa._kernel_args(x, None, 0.0, None)[0] == ("mma", 64)
-    assert fa._kernel_args(x.float(), None, 0.0, None)[0] == ("scalar", 64)
+    assert fa._kernel_args(x.float(), None, 0.0, None)[0] == ("tf32x3", 64)
     with pytest.raises(ValueError, match="float16 x head_dim 64"):
         fa._kernel_args(x.half(), None, 0.0, None)
-    assert set(fa.VARIANTS) == {(route, depth) for route in ("mma", "scalar")
+    assert set(fa.VARIANTS) == {(route, depth) for route in ("mma", "tf32x3")
                                 for depth in (16, 32, 64, 128)}
     assert set(fa.flash_attention_forward.launches) == set(fa.VARIANTS)
     assert set(fa.flash_attention_backward.launches) == set(fa.VARIANTS)
