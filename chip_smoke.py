@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels, holds
 each against its plain PyTorch version, then drives the serving path, the
-training path, the HTTP layer and the CLI.
+training path, the HTTP layer, the CLI and MusicRNN.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,9 @@ Phases (any failure exits non-zero):
    batch 8 with relative attention off and on, batch 1, ragged prompts and a
    prefill import, and batch 32 (a smaller cluster per sequence), at 64
    steps with cache 128, and again at the main path's shapes (batch 8 x
-   (10 + 1014) and batch 1, cache 1024), where the kernel runs twice and
+   (10 + 1014) greedy and sampled and batch 1 greedy, cache 1024; with
+   relative attention on, batch 8 sampled: the plain version takes 8-10 s a
+   case there), where the kernel runs twice and
    must give the same ids both times (a race between the blocks of a
    cluster shows as ids that differ only sometimes); the last step's
    logits must agree within 1e-3. bfloat16: logits of a teacher-forced run
@@ -30,8 +32,9 @@ Phases (any failure exits non-zero):
    (``cluster_size``) is printed. The device's busy share of a call is
    measured with CUDA events around the call and around the kernel's
    launch. Then kernel and plain version are timed at the same shapes;
-   their ids are compared, and the plain version's output, teacher-forced
-   through both, must give last-step logits within the bfloat16 rule. The
+   their ids are compared, and at batch 8 the plain version's output,
+   teacher-forced through both, must give last-step logits within the
+   bfloat16 rule. The
    kernel is also timed over 64 steps from position 0 and 64 from 960
    (``steps_from_ms``): the weights' share of a step against attention's.
 
@@ -103,10 +106,11 @@ Phases (any failure exits non-zero):
 6. The speculative kernel ``spec_decode`` (csrc/spec_decode.cu, one
    thread-block cluster of G blocks, G printed) against its plain PyTorch
    version in float32: identical tokens and stats, greedy and sampled,
-   relative attention off and on, blocks 2, 3, 5 and 11 at 64 steps with
-   cache 128 at the default widths, block 16 on a narrower model, and the
-   main path's shape 1 x (10 + 1014), cache 1024, greedy at T=5 and sampled
-   at T=3. Then its ids against ``decode_generate``'s at batch 1, equal bit
+   blocks 2, 3, 5 and 11 (2 and 11 with relative attention on) at 64 steps
+   with cache 128 at the default widths, block 16 on a narrower model, and
+   the main path's shape 1 x (10 + 1014), cache 1024, greedy at T=5 and
+   sampled at T=3 (sampled only with relative attention on). Then its ids
+   against ``decode_generate``'s at batch 1, equal bit
    for bit in float32 and bfloat16, relative attention off and on: greedy
    and sampled (top-k 30, top-p 0.9) at blocks 2, 3, 5 and 11, 64 steps with
    cache 128, and greedy T=5 and sampled T=3 at the main shape, where the
@@ -137,9 +141,10 @@ Phases (any failure exits non-zero):
    throughout and two arriving mid-run, 64 steps cut into segments of 1, 7
    and 64, cache 128, relative attention off and on, greedy and sampled:
    ids and carry identical, and identical across the three cuts. Then the
-   service's shape, 8 x (10 + 1014) in 16 segments of 64 with cache 2048
-   (greedy, relative attention off; sampled, on): identical to the plain
-   version and to one ``decode_generate`` launch. (b) bf16 at that shape:
+   service's shape, 8 x (10 + 1014) in 16 segments of 64 with cache 2048:
+   greedy, relative attention off, identical to the plain version and to
+   one ``decode_generate`` launch; sampled, on, identical to one
+   ``decode_generate`` launch. (b) bf16 at that shape:
    the kernel's ms per segment (CUDA events around each launch) against
    the plain version's and the bound, one ``decode_generate`` launch for
    the same generation (the cost of segmenting), the greedy ids'
@@ -162,14 +167,15 @@ Phases (any failure exits non-zero):
    ``generate_ids``' wide route. (a) Kernel against plain version, 8 ragged
    rows x 150 steps at cache 256 (past the int8 K/V window at 128), greedy
    and sampled with per-row top-k / top-p: float32 weights give identical
-   ids and last-step logits within 1e-3, with float and int8 K/V, at the
-   default widths (relative attention off and on, where the ids also equal
-   one ``decode_generate`` launch; and batch 1 x 600 steps, 8 key splits)
-   and at the embed-1024 flagship's (random weights from a numpy seed),
-   where a second call on the reused K/V state equals a fresh one. int8
-   weights compute on bf16-rounded activations: their ids, teacher-forced
-   through the plain version, must pass the bf16 rule
-   (``wide_teacher_forced_gap``). (b) The flagship in bf16 through
+   ids and last-step logits within 1e-3, at the default widths (relative
+   attention off and on, where the ids also equal one ``decode_generate``
+   launch; batch 1 x 600 steps, 8 key splits; int8 K/V) and at the
+   embed-1024 flagship's (random weights from a numpy seed), where a second
+   call on the reused K/V state equals a fresh one. int8 weights compute on
+   bf16-rounded activations: their ids, teacher-forced through the plain
+   version, must pass the bf16 rule (``wide_teacher_forced_gap``): with
+   int8 K/V at the default widths, with and without on the flagship. (b)
+   The flagship in bf16 through
    ``generate_ids(engine="auto")``, 8 x (10 + 1014) from a codec-encoded
    prompt and 1 x (10 + 1014), sampled: the wide kernel's launch count must
    rise and ``decode_generate``'s not, ids lie in the vocabulary, a MIDI file
@@ -183,10 +189,10 @@ Phases (any failure exits non-zero):
    step (``wide_clock_line``); with ``--parent``, the parent checkout's
    kernel on the same bf16 inputs (parent, this, this, parent; this one
    must be faster at both batches) and the agreement of its float32 greedy
-   ids with this kernel's; the plain version and one ``decode_generate``
-   launch on the same weights (the route ``auto`` took before the wide
-   kernel); then the default model's wide time beside
-   ``decode_generate``'s.
+   ids with this kernel's; the plain version (at B=8: it takes 15-20 s a
+   call) and one ``decode_generate`` launch on the same weights (the route
+   ``auto`` took before the wide kernel); then the default model's wide
+   time beside ``decode_generate``'s.
 
 9. The streamed-weight segment kernel ``decode_wide_segment``
    (csrc/decode_wide_segment.cu) and ``ContinuousGenerationService``'s wide
@@ -264,6 +270,20 @@ Phases (any failure exits non-zero):
    launches ``decode_segment``. Prints each command's wall time, the train
    step time and events/s, evaluate's loss, and generate's events/s.
 
+12. MusicRNN (``rnn_path``) at the default config's widths (vocab 390,
+   embed 256, 3 LSTM layers of 512, dropout 0.3, BatchNorm), bf16 compute:
+   ``Trainer.train`` 8 steps of 64 x 200 on one fixed batch of codec-encoded
+   ids (finite losses that fall; the BatchNorm statistics move on the card),
+   ``profile_steps`` (the device's idle share), ``evaluate`` on 4 other
+   batches, ``generate_ids`` at 8 x (10 + 1024) sampled (the shapes of
+   ``composer_tpu/bench.py``'s RNN train and decode benchmarks); then the
+   trained weights in float32 on the card against the same on the CPU:
+   logits over 4 x 200 within 1e-4 of their scale (bf16 on the card within
+   the 2% rule), and greedy 4 x (10 + 246) ids equal, or every card token
+   within 2% of the logits' scale of its row's maximum. No TPU kernel lies
+   on this path (the JAX package's LSTM is an XLA scan; the port's is
+   cuDNN's), so no kernel's count moves. About 12 s.
+
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
 H100 SXM's published peaks, the resident decode kernels' bytes counting
@@ -291,6 +311,7 @@ only if the sound kernels pass and every fault fails in every case.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -470,16 +491,17 @@ def kernel_vs_plain(device) -> dict:
         main_plens = torch.full((8,), PROMPT_EVENTS, dtype=torch.int32, device=device)
         # The main shapes' kernel runs twice: DSMEM races show as ids that
         # differ only sometimes.
+        main_cases = (
+            ("B=8 greedy", main, main_plens, greedy8, {}),
+            ("B=8 sampled", main, main_plens, sampled8, {"seed": 10}),
+            ("B=1 greedy", main[:1], main_plens[:1], vectors(1, 0.0, 0, 0.0), {}),
+        )
+        if use_relative:  # the plain version takes 8-10 s a case at this shape
+            main_cases = main_cases[1:2]
         cases = [(*case, 64, 128) for case in cases] + [
             (f"{name} main shape", p, plens, vectors_, {**extra, "kernel_runs": 2},
              GENERATE_EVENTS, 1024)
-            for name, p, plens, vectors_, extra in (
-                ("B=8 greedy", main, main_plens, greedy8, {}),
-                ("B=8 sampled", main, main_plens, sampled8, {"seed": 10}),
-                ("B=1 greedy", main[:1], main_plens[:1], vectors(1, 0.0, 0, 0.0), {}),
-                ("B=1 sampled", main[:1], main_plens[:1], vectors(1, 1.0, 30, 0.9),
-                 {"seed": 11}),
-            )]
+            for name, p, plens, vectors_, extra in main_cases]
         for name, p, plens, (temps, topk, topp), extra, length, cache_len in cases:
             ours, plain, err, _ = run_both(packed, config, p, plens, temps, topk, topp,
                                            length=length, cache_len=cache_len, **extra)
@@ -691,15 +713,18 @@ def timings(device, engine, prompt, card: str) -> dict:
               f"({events / kernel_ms * 1e3:.1f} events/s), plain {plain_ms:.2f} ms "
               f"({events / plain_ms * 1e3:.1f} events/s) [{card}]", flush=True)
         agree = float((ours == plain).float().mean())
-        forced = torch.cat([prompts, plain], dim=1)[:, :num_steps].contiguous()
-        widths = torch.full((batch,), num_steps, dtype=torch.int32, device=device)
-        _, _, err, logits = run_both(engine.packed, engine.config, forced, widths, temps,
-                                     topk, topp, length=1, cache_len=1024)
-        scale = float(logits[:, :engine.config.vocab_size].abs().max())
-        print(f"B={batch} bf16 main shape: sampled ids agreement={agree:.4f}; teacher-forced "
-              f"last-step logits max_abs_err={err:.3e} (scale {scale:.3f})", flush=True)
-        if err > BF16_LOGIT_REL_TOL * scale:
-            raise AssertionError(f"bf16 logits differ by {err} > {BF16_LOGIT_REL_TOL} x {scale}")
+        print(f"B={batch} bf16 main shape: sampled ids agreement={agree:.4f}", flush=True)
+        if batch > 1:  # B=1 is phase 2's f32 main shapes (the plain run takes 8 s)
+            forced = torch.cat([prompts, plain], dim=1)[:, :num_steps].contiguous()
+            widths = torch.full((batch,), num_steps, dtype=torch.int32, device=device)
+            _, _, err, logits = run_both(engine.packed, engine.config, forced, widths, temps,
+                                         topk, topp, length=1, cache_len=1024)
+            scale = float(logits[:, :engine.config.vocab_size].abs().max())
+            print(f"B={batch} bf16 main shape: teacher-forced last-step logits "
+                  f"max_abs_err={err:.3e} (scale {scale:.3f})", flush=True)
+            if err > BF16_LOGIT_REL_TOL * scale:
+                raise AssertionError(f"bf16 logits differ by {err} > {BF16_LOGIT_REL_TOL} x "
+                                     f"{scale}")
         result[form] = (kernel_ms, plain_ms)
         steps_ms = {start: steps_from_ms(engine, batch, start, device) for start in (0, 960)}
         print(f"B={batch} bf16, 64 steps (CUDA events, teacher-forced): from position 0 "
@@ -1666,14 +1691,17 @@ def spec_vs_plain(device) -> int:
         config = model.config
         packed = dk.pack_weights(model.state_dict(), config, dtype=torch.float32, device=device)
         prompt = rng.integers(0, 390, 10)
-        for block in (2, 3, 5, 11):
+        # The plain version takes about 2 s a 64-step case: relative
+        # attention is checked at the smallest and the largest block.
+        for block in (2, 11) if use_relative else (2, 3, 5, 11):
             for seed, sampling in ((0, greedy), (5, sampled)):
                 kind = "greedy" if sampling is greedy else "sampled"
                 worst = max(worst, spec_check(f"rel={use_relative} T={block} {kind}", packed,
                                               config, prompt, seed, sampling, block, 64, 128))
         main = np.random.default_rng(2).integers(0, 390, PROMPT_EVENTS)
-        for block, seed, sampling, kind in ((5, 0, greedy, "greedy"),
-                                            (3, 11, (1.0, 0, 0.0), "sampled")):
+        main_cases = ((5, 0, greedy, "greedy"), (3, 11, (1.0, 0, 0.0), "sampled"))
+        # The plain version takes 12 s a case at the main shape.
+        for block, seed, sampling, kind in main_cases[use_relative:]:
             worst = max(worst, spec_check(
                 f"rel={use_relative} T={block} {kind} main shape 1 x ({PROMPT_EVENTS} + "
                 f"{GENERATE_EVENTS})", packed, config, main, seed, sampling, block,
@@ -2115,11 +2143,14 @@ def segment_vs_plain(device) -> int:
         model, _ = build_model(use_relative, device)
         config = model.config
         packed = dk.pack_weights(model.state_dict(), config, dtype=torch.float32, device=device)
+        # The plain version takes about 1 s a segment here: it runs for the
+        # first case; both cases are held to one decode_generate launch.
         runs = [segment_stream(packed, config, main, plens, starts, boundaries, sampling,
                                cache_len=SERVE_CACHE, plain=plain, seed=seed)
-                for plain in (False, True)]
-        compare(f"rel={use_relative} {kind} 8 x ({PROMPT_EVENTS} + {GENERATE_EVENTS}), cache "
-                f"{SERVE_CACHE}, segments of {SEGMENT_STEPS}", *runs)
+                for plain in ((False, True) if not use_relative else (False,))]
+        if len(runs) == 2:
+            compare(f"rel={use_relative} {kind} 8 x ({PROMPT_EVENTS} + {GENERATE_EVENTS}), "
+                    f"cache {SERVE_CACHE}, segments of {SEGMENT_STEPS}", *runs)
         temps, topk, topp = dk.row_params(8, 512, *sampling, *dk.sampling_flags(*sampling),
                                           device)
         fused = decode_generate(packed, torch.as_tensor(main, device=device),
@@ -2572,9 +2603,8 @@ def wide_vs_plain(device, flagship) -> float:
     check("default f32 weights + int8 K/V sampled", packed, config, WIDE_SAMPLED,
           quantize_kv=True)
     int8 = dw.pack_weights_wide(model.state_dict(), config, dtype=torch.int8)
-    for quantize_kv in (False, True):
-        check(f"default int8 weights{' + int8 K/V' if quantize_kv else ''} sampled", int8,
-              config, WIDE_SAMPLED, quantize_kv=quantize_kv)
+    check("default int8 weights + int8 K/V sampled", int8, config, WIDE_SAMPLED,
+          quantize_kv=True)
 
     config = flagship.config
     packed = dw.pack_weights_wide(flagship.state_dict(), config, dtype=torch.float32)
@@ -2589,8 +2619,6 @@ def wide_vs_plain(device, flagship) -> float:
     if not torch.equal(reused, fresh):
         raise AssertionError("wide: a reused K/V state gives other ids than a fresh one")
     print("wide flagship: a second call on the reused K/V state equals a fresh one", flush=True)
-    check("flagship f32 weights + int8 K/V sampled", packed, config, WIDE_SAMPLED,
-          quantize_kv=True)
     del packed, state
     int8 = dw.pack_weights_wide(flagship.state_dict(), config, dtype=torch.int8)
     for quantize_kv in (False, True):
@@ -2815,10 +2843,12 @@ def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: floa
                 print(f"flagship wide f32 greedy 8 x (9 + 142): ids agreement with the parent's "
                       f"kernel {float((ours_ids == theirs).float().mean()):.4f}", flush=True)
                 del f32
-        start = time.perf_counter()
-        wide_run(packs["bf16"][0], config, prompts, plens, sampled, length=GENERATE_EVENTS,
-                 cache_len=1024, plain=True)
-        plain_ms = (time.perf_counter() - start) * 1e3
+        plain_ms = None  # timed at B=8 only (15-20 s a call)
+        if batch == 8:
+            start = time.perf_counter()
+            wide_run(packs["bf16"][0], config, prompts, plens, sampled, length=GENERATE_EVENTS,
+                     cache_len=1024, plain=True)
+            plain_ms = (time.perf_counter() - start) * 1e3
         rows = dk.row_params(batch, 512, *sampled, *dk.sampling_flags(*sampled), device)
         fused_args = (path["fused_packed"], torch.as_tensor(prompts, device=device),
                       torch.as_tensor(plens, device=device), 0, *rows, None, None)
@@ -2830,8 +2860,10 @@ def wide_timings(device, card: str, flagship, path: dict, default_fused_ms: floa
 
         fused(PROMPT_EVENTS + 15)  # warm-up
         fused_ms = cuda_ms(lambda: fused(num_steps), 1)
+        plain = ("not timed" if plain_ms is None
+                 else f"{plain_ms:.2f} ms ({events / plain_ms * 1e3:.1f} events/s)")
         print(f"flagship B={batch} x {GENERATE_EVENTS} bf16: wide kernel {times['bf16']:.2f} ms, "
-              f"plain version {plain_ms:.2f} ms ({events / plain_ms * 1e3:.1f} events/s), "
+              f"plain version {plain}, "
               f"decode_generate (auto's route before the wide kernel) {fused_ms:.2f} ms "
               f"({events / fused_ms * 1e3:.1f} events/s); wide is "
               f"{fused_ms / times['bf16']:.2f}x faster [{card}]", flush=True)
@@ -3973,6 +4005,127 @@ def cli_path(device, card: str) -> dict:
     return totals
 
 
+RNN_TRAIN_STEPS = 8  # phase 12: bf16 steps on one fixed batch
+RNN_DECODE_BATCH, RNN_DECODE_EVENTS = 8, 1024  # composer_tpu/bench.py:397's decode shape
+RNN_F32_TOL = 1e-4  # f32 logits, card against CPU, of their scale: other summation orders
+
+
+def rnn_path(device, card: str, yaml_config) -> dict:
+    """Phase 12: MusicRNN at the default config's widths (vocab 390, embed
+    256, 3 LSTM layers of 512, dropout 0.3, BatchNorm; batch 64 x window
+    200, bf16 on the card), through the entry points a user calls. No TPU
+    kernel lies on this path (the JAX package's LSTM is an XLA scan), so no
+    kernel's launch count moves: the LSTM is cuDNN's (``torch.lstm``)."""
+    from composer_tpu_torch.data import WindowDataset
+    from composer_tpu_torch.models import ModelType, create_model, get_learning_rate
+    from composer_tpu_torch.models.music_rnn import MusicRNN
+    from composer_tpu_torch.train.generate import generate_ids
+    from composer_tpu_torch.train.trainer import Trainer
+
+    model, vocab = create_model(ModelType.MUSIC_RNN, yaml_config, device=device)
+    config = model.config
+    section = yaml_config.music_rnn
+    batch, window = int(section.train.batch_size), int(section.model.window_size)
+    if (config.dtype, batch, window, config.layer_sizes) != (torch.bfloat16, 64, 200,
+                                                             (512, 512, 512)):
+        raise AssertionError(f"not the default MusicRNN: {config}, {batch} x {window}")
+    trainer = Trainer(model, ModelType.MUSIC_RNN, get_learning_rate(ModelType.MUSIC_RNN,
+                                                                    yaml_config),
+                      seed=0, device=device)
+    state = trainer.init_state(batch, window)
+    block = training_corpus(yaml_config, batch * (window + 1))[:batch * (window + 1)]
+    # The same batch every step: the loss must fall on it.
+    fixed = WindowDataset(np.tile(block, RNN_TRAIN_STEPS), batch, window, shuffle=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        state, step_seconds, losses, _ = timed_train(trainer, state, fixed, tmp)
+    mean_step = float(np.mean(step_seconds[1:]))
+    print(f"MusicRNN train bf16 {batch} x {window}: losses {[round(x, 4) for x in losses]}; "
+          f"step 1 {step_seconds[0] * 1e3:.2f} ms, then {mean_step * 1e3:.2f} ms (steps "
+          f"2-{RNN_TRAIN_STEPS}), {batch * window / mean_step:.1f} train events/s [{card}]",
+          flush=True)
+    if len(losses) != RNN_TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"bad MusicRNN losses: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the MusicRNN loss did not fall on a fixed batch: {losses}")
+    stats = [norm.running_var for norm in model.batch_norms]
+    if any(s.device != device or bool((s == 1).all()) for s in stats):
+        raise AssertionError("the BatchNorm statistics did not move on the card")
+    profile_steps(trainer, state, fixed, card, 3)
+
+    corpus = training_corpus(yaml_config, 4 * batch * (window + 1) + 1)
+    held_out = WindowDataset(corpus[-4 * batch * (window + 1):], batch, window, shuffle=False)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    scores = trainer.evaluate(held_out, state)
+    evaluate_s = time.perf_counter() - start
+    print(f"MusicRNN evaluate over {len(held_out)} batches: loss {scores['loss']:.4f}, "
+          f"accuracy {scores['accuracy']:.4f} in {evaluate_s:.3f} s [{card}]", flush=True)
+    if not np.isfinite(scores["loss"]):
+        raise AssertionError(f"bad MusicRNN evaluation: {scores}")
+
+    prompts = np.tile(encoded_prompt(yaml_config, PROMPT_EVENTS), (RNN_DECODE_BATCH, 1))
+    generate_ids(model, ModelType.MUSIC_RNN, None, prompts, length=16)  # warm-up
+    window_events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    window_events[0].record()
+    ids = generate_ids(model, ModelType.MUSIC_RNN, None, prompts, length=RNN_DECODE_EVENTS,
+                       temperature=1.0, seed=1)
+    window_events[1].record()
+    decode_s = time.perf_counter() - start
+    events = RNN_DECODE_BATCH * RNN_DECODE_EVENTS
+    print(f"MusicRNN generate_ids bf16 {RNN_DECODE_BATCH} x ({PROMPT_EVENTS} + "
+          f"{RNN_DECODE_EVENTS}): {decode_s:.3f} s, {events / decode_s:.1f} events/s, device "
+          f"window {window_events[0].elapsed_time(window_events[1]):.1f} ms [{card}]",
+          flush=True)
+    if ids.shape != (RNN_DECODE_BATCH, PROMPT_EVENTS + RNN_DECODE_EVENTS) or ids.min() < 0 \
+            or ids.max() >= vocab:
+        raise AssertionError(f"bad MusicRNN ids: shape {ids.shape}")
+
+    # The trained weights in float32 on the card against the same on the
+    # CPU: logits, and greedy decode (equal ids, or every card token within
+    # the bf16 rule of its row's maximum, teacher-forced on the CPU).
+    f32 = dataclasses.replace(config, dtype=torch.float32)
+    weights = {name: t.detach().cpu() for name, t in model.state_dict().items()}
+    card_model, host_model = MusicRNN(f32), MusicRNN(f32)
+    for m in (card_model, host_model):
+        m.load_state_dict(weights)
+    card_model.to(device)
+    tokens = torch.as_tensor(block[:4 * window].reshape(4, window)).long()
+    with torch.no_grad():
+        host_logits, _ = host_model(tokens)
+        card_logits, _ = card_model(tokens.to(device))
+        bf16_logits, _ = model(tokens.to(device))
+    scale = float(host_logits.abs().max())
+    f32_err = float((card_logits.cpu() - host_logits).abs().max())
+    bf16_err = float((bf16_logits.float().cpu() - host_logits).abs().max())
+    greedy = {}
+    for name, m in (("card", card_model), ("cpu", host_model)):
+        greedy[name] = generate_ids(m, ModelType.MUSIC_RNN, None, prompts[:4], length=246,
+                                    temperature=0.0)
+    same = bool(np.array_equal(greedy["card"], greedy["cpu"]))
+    gap = 0.0
+    if not same:
+        with torch.no_grad():
+            forced, _ = host_model(torch.as_tensor(greedy["card"][:, :-1]).long())
+        step_logits = forced[:, PROMPT_EVENTS - 1:]
+        picked = step_logits.gather(-1, torch.as_tensor(
+            greedy["card"][:, PROMPT_EVENTS:]).long()[..., None])[..., 0]
+        gap = float((step_logits.max(-1).values - picked).max()) / float(
+            step_logits.abs().max())
+    print(f"MusicRNN f32 card against CPU (same weights, 4 x {window}): logits max_abs_err "
+          f"{f32_err:.3e} (scale {scale:.3f}); bf16 card against f32 CPU {bf16_err:.3e}; greedy "
+          f"4 x (10 + 246) ids equal={same}, worst token gap {gap:.4f} of scale", flush=True)
+    if f32_err > RNN_F32_TOL * scale:
+        raise AssertionError(f"MusicRNN f32 logits differ by {f32_err} > {RNN_F32_TOL} x {scale}")
+    if bf16_err > BF16_LOGIT_REL_TOL * scale:
+        raise AssertionError(f"MusicRNN bf16 logits differ by {bf16_err} > "
+                             f"{BF16_LOGIT_REL_TOL} x {scale}")
+    if gap > BF16_LOGIT_REL_TOL:
+        raise AssertionError(f"MusicRNN greedy card token {gap} of scale below its row's max")
+    return {"step_ms": mean_step * 1e3, "decode_s": decode_s, "loss": scores["loss"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -4010,6 +4163,7 @@ def main() -> int:
         print(f"{name} done at {time.perf_counter() - start:.1f} s (host clock)", flush=True)
 
     errors = kernel_vs_plain(device)
+    phase_done("phase 2")
     path = main_path(device, card)
     times = timings(device, path["engine"], path["prompt"], card)
     phase_done("phases 2-3")
@@ -4042,21 +4196,36 @@ def main() -> int:
                         raise AssertionError(f"flash f32 D={depth} (rel, dropout) {case} "
                                              f"{direction}: not faster than the parent's kernel")
     spec_error = spec_vs_plain(device)
+    phase_done("phase 6a")
     spec_vs_sequential(device)
+    phase_done("phase 6a'")
     spec = spec_path(device, card, training["restored"], parent)
+    phase_done("phase 6")
     segment_error = segment_vs_plain(device)
+    phase_done("phase 7a")
     segment = segment_timings(device, card)
+    phase_done("phase 7b")
     serve = serve_path(device, card)
+    phase_done("phase 7")
     flagship = build_flagship(device)
     wide_error = wide_vs_plain(device, flagship)
+    phase_done("phase 8a")
     wide_path = flagship_path(device, card, flagship, get_default())
+    phase_done("phase 8b")
     wide = wide_timings(device, card, flagship, wide_path, times["batched"][0], parent)
+    phase_done("phase 8")
     wide_segment_error = wide_segment_vs_plain(device, flagship)
+    phase_done("phase 9a")
     wide_segment = wide_segment_timings(device, card, flagship, parent)
+    phase_done("phase 9b")
     wide_serve = wide_serve_path(device, card, flagship, wide_segment["first_ms"])
+    phase_done("phase 9")
     http = http_path(device, card, flagship, wide_path["fused_packed"])
+    phase_done("phase 10")
     cli = cli_path(device, card)
     phase_done("phases 6-11")
+    rnn_path(device, card, get_default())
+    phase_done("phase 12")
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1

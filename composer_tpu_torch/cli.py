@@ -4,12 +4,14 @@
 
 The port of ``composer_tpu/cli.py``, with its command names, arguments,
 options, defaults and exit codes: ``make-config``, ``preprocess``,
-``train``, ``evaluate``, ``generate`` and ``serve``. The data commands
+``train``, ``evaluate``, ``generate``, ``serve`` and ``import-checkpoint``,
+for both model types (``transformer``, ``music_rnn``). The data commands
 (``make-config``, ``preprocess``) write the JAX package's files byte for
-byte, and ``train``, ``evaluate``, ``generate`` and ``serve`` run on the
-device that ``--device`` names: the CUDA card by default, the CPU when asked
-(``--device cpu``). Nothing falls back to the CPU: ``--device cuda`` where
-PyTorch sees no card stops with an error.
+byte, and ``train``, ``evaluate``, ``generate``, ``serve`` and
+``import-checkpoint`` run on the device that ``--device`` names: the CUDA
+card by default, the CPU when asked (``--device cpu``). Nothing falls back
+to the CPU: ``--device cuda`` where PyTorch sees no card stops with an
+error.
 
 What differs from the JAX CLI:
 
@@ -25,7 +27,7 @@ What differs from the JAX CLI:
 * ``.tfrecord`` datasets, ``export-dataset``, ``summary``,
   ``visualize-training``, ``profile``, ``synthesize`` and ``benchmark`` wait
   for the second half of ROADMAP.md, Queue 1 item 5 (``benchmark`` also for
-  item 3), and ``import-checkpoint`` for item 9; MusicRNN for item 6.
+  item 3).
 
 Deliberate fixes over the reference, as in the JAX CLI: ``--seed`` seeds the
 RNGs; ``--num-workers`` is honoured; ``generate`` decodes with a KV cache
@@ -376,6 +378,44 @@ def train(model_type, dataset_path, logdir, restoredir, config_filepath, epochs,
     )
 
 
+@cli.command("import-checkpoint")
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("checkpoint-dir")
+@click.argument("output-logdir")
+@click.option("--config", "-c", "config_filepath", default=None,
+              help="The path of the configuration file the reference model was "
+                   "trained with. Defaults to the default configuration.")
+def import_checkpoint(model_type, checkpoint_dir, output_logdir, config_filepath):
+    """Import a checkpoint trained by the TF reference implementation.
+
+    Reads a tf.train.Checkpoint saved by the reference's train loop (weights,
+    batch-norm statistics, step/epoch; requires TensorFlow for the read),
+    converts it to the port's checkpoint format under OUTPUT_LOGDIR, and
+    snapshots the config there, after which `generate`, `evaluate`, `serve`
+    and `train --restoredir` accept OUTPUT_LOGDIR directly. Optimizer state
+    does not transfer (resumed training restarts Adam).
+    """
+    from composer_tpu_torch.train.import_reference import import_reference_checkpoint
+
+    get_device()  # fail before a log directory is made
+    config = config_module.get(config_filepath or get_default_config())
+    output_logdir = Path(output_logdir)
+    output_logdir.mkdir(parents=True, exist_ok=True)
+    state = import_reference_checkpoint(model_type, checkpoint_dir, output_logdir, config)
+    # Snapshot the config only after a successful import: a failed import
+    # must not leave a logdir that a later restore mistakes for a model's.
+    source = Path(config.filepath or get_default_config()).read_text()
+    (output_logdir / "config.yml").write_text(
+        _CONFIG_SNAPSHOT_BANNER.format(
+            datetime=str(datetime.datetime.now()), config_source=source
+        )
+    )
+    logging.info(
+        "Imported reference checkpoint into '%s' (step=%d, epoch=%d).",
+        output_logdir, state.step, state.epoch,
+    )
+
+
 @cli.command()
 @click.argument("model-type", type=EnumType(ModelType, False))
 @click.argument("dataset-path")
@@ -431,7 +471,8 @@ def evaluate(model_type, dataset_path, restoredir, use_generator, max_files):
                    "--device cpu each engine runs its plain PyTorch version.")
 def generate(model_type, restoredir, output_filepath, prompt, prompt_length,
              generate_length, temperature, top_k, top_p, engine):
-    """Generate a MIDI file (one launch of a fused decode kernel on the card)."""
+    """Generate a MIDI file (one launch of a fused decode kernel on the card
+    for a transformer; the LSTM stepped one event at a time for music_rnn)."""
     from composer_tpu_torch.midi.events import EventSequence
     from composer_tpu_torch.train.generate import generate_ids
 
@@ -468,6 +509,8 @@ def generate(model_type, restoredir, output_filepath, prompt, prompt_length,
             dtype=np.int32,
         )
 
+    # None: the restored module's own weights and, for MusicRNN, its
+    # BatchNorm running statistics (buffers of the module).
     ids = generate_ids(
         trainer.model, model_type, None, prompt_ids,
         length=generate_length, temperature=temperature, seed=get_seed(),
@@ -555,6 +598,8 @@ def serve(model_type, restoredir, host, port, max_batch_size, max_wait_ms,
         restoredir, get_batch_size(model_type, config), get_window_size(model_type, config)
     )
     vocab = vocabulary_from_config(config)
+    # The services copy the restored module's state_dict: its weights and,
+    # for MusicRNN, its BatchNorm running statistics.
     if continuous:
         service = ContinuousGenerationService(
             trainer.model, model_type, None, vocab.size,

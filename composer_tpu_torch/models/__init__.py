@@ -56,6 +56,7 @@ def create_model(model_type: ModelType, config, device="cuda", **overrides):
     Flax initializers from torch's default generator; load real weights with
     ``load_state_dict``.
     """
+    from composer_tpu_torch.models.music_rnn import MusicRNN, MusicRNNConfig
     from composer_tpu_torch.models.transformer import Transformer, TransformerConfig
 
     vocab_size = get_event_vocab_size(config)
@@ -85,9 +86,23 @@ def create_model(model_type: ModelType, config, device="cuda", **overrides):
         return Transformer(model_config, device=device), vocab_size
 
     if model_type == ModelType.MUSIC_RNN:
-        raise NotImplementedError(
-            "MusicRNN is not ported yet (ROADMAP.md, Queue 1 item 6)."
+        section = config.music_rnn.model
+        layer_sizes = section.lstm_layer_sizes
+        if not isinstance(layer_sizes, (list, tuple)):
+            layer_sizes = [int(layer_sizes)] * int(section.lstm_layers_count)
+        dropout = section.lstm_dropout_probability
+        if not isinstance(dropout, (list, tuple)):
+            dropout = [float(dropout)] * int(section.lstm_layers_count)
+        overrides.setdefault("dtype", _compute_dtype(section, device))
+        model_config = MusicRNNConfig(
+            vocab_size=vocab_size,
+            embed_dim=int(section.embedding_size),
+            layer_sizes=tuple(int(s) for s in layer_sizes),
+            dropout_rates=tuple(float(d) for d in dropout),
+            use_batch_normalization=bool(section.use_batch_normalization),
+            **overrides,
         )
+        return MusicRNN(model_config, device=device), vocab_size
 
     raise InvalidParameterError(f"Unrecognized model type: '{model_type}'.")
 

@@ -1,15 +1,78 @@
-"""Per-row sampling for the unfused decode path.
+"""Sampling for the unfused decode path: port of ``composer_tpu/ops/sampling.py``.
 
-Port of the per-row half of ``composer_tpu/ops/sampling.py``. Each parameter
-is a ``[B]`` vector, so one call serves a batch with mixed settings. The
-warpers apply in the canonical order: temperature, then top-k, then top-p
-over the top-k survivors (the fused kernel computes both filters on the
-unfiltered row instead; see ``ops/decode_kernel.py``).
+The scalar samplers (``sample_logits``, ``filter_top_k``, ``sample_top_k``,
+``filter_top_p``, ``sample_filtered``) take one setting for every row; the
+per-row forms (``*_rows``) take ``[B]`` vectors, so one call serves a batch
+with mixed settings. Where a row's setting equals a scalar one, both give
+the same filtered logits. The warpers apply in the canonical order:
+temperature, then top-k, then top-p over the top-k survivors (the fused
+kernel computes both filters on the unfiltered row instead; see
+``ops/decode_kernel.py``). Random draws come from a ``torch.Generator`` on
+the logits' device.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _categorical(generator: torch.Generator, logits):
+    """One draw per row of ``logits`` ``[..., V]`` (-inf entries never)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(probs.shape[:-1])
+
+
+def sample_logits(generator: torch.Generator, logits, temperature: float = 1.0):
+    """Temperature-scaled categorical sampling over the last axis;
+    ``temperature <= 0`` is the argmax. Returns int64 ids of shape
+    ``logits.shape[:-1]``."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    return _categorical(generator, logits.float() / temperature)
+
+
+def filter_top_k(logits, k: int):
+    """Keeps the k largest logits (ties at the k-th value too); the rest go
+    to -inf."""
+    threshold = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < threshold, -torch.inf, logits)
+
+
+def sample_top_k(generator: torch.Generator, logits, temperature: float = 1.0, k: int = 0):
+    """Top-k filtered temperature sampling (``k <= 0`` disables the filter)."""
+    if k and k > 0:
+        logits = filter_top_k(logits, k)
+    return sample_logits(generator, logits, temperature)
+
+
+def filter_top_p(logits, p: float):
+    """Nucleus filtering: keeps the smallest probability-sorted prefix whose
+    mass reaches ``p`` (the token that crosses ``p`` is kept); the rest go to
+    -inf."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits.float(), dim=-1)
+    cumulative = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cumulative - probs) < p
+    kept = torch.where(keep_sorted, sorted_logits, torch.inf)
+    threshold = kept.min(dim=-1, keepdim=True).values
+    return torch.where(logits < threshold, -torch.inf, logits)
+
+
+def sample_filtered(generator: torch.Generator, logits, temperature: float = 1.0,
+                    top_k: int = 0, top_p: float = 0.0):
+    """Temperature sampling with optional top-k and nucleus filtering, in
+    the canonical order (temperature, top-k, then top-p over the
+    survivors). ``top_k <= 0`` and ``top_p`` outside (0, 1) disable each
+    filter; with both disabled this is :func:`sample_logits`."""
+    greedy = temperature <= 0
+    if not greedy:
+        logits = logits.float() / temperature
+    if top_k and top_k > 0:
+        logits = filter_top_k(logits, top_k)
+    if top_p and 0.0 < top_p < 1.0:
+        logits = filter_top_p(logits, top_p)
+    return sample_logits(generator, logits, 0.0 if greedy else 1.0)
 
 
 def filter_top_k_rows(logits, k):
@@ -51,6 +114,5 @@ def sample_filtered_rows(generator: torch.Generator, logits, temperature, top_k,
     safe = torch.where(greedy, torch.ones_like(temperature), temperature)
     scaled = logits.float() / safe[..., None]
     filtered = filter_top_p_rows(filter_top_k_rows(scaled, top_k), top_p)
-    probs = torch.softmax(filtered, dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[..., 0]
+    sampled = _categorical(generator, filtered)
     return torch.where(greedy, torch.argmax(logits, dim=-1), sampled)

@@ -11,7 +11,9 @@ device:
   the card's L2 ``decode_wide``. Sampling settings ride into the kernels as
   per-row vectors; prompts pad to the power-of-two bucket width with their
   real lengths in ``prompt_lengths``; the batch decodes to the length bucket
-  and each row is truncated to its requested length.
+  and each row is truncated to its requested length. MusicRNN has no ragged
+  prompts and no decode kernel: its requests coalesce by exact prompt length
+  and run ``generate_ids``' LSTM path.
 * ``ContinuousGenerationService``, what ``composer serve --continuous``
   runs: the token loop runs in fixed-step segments of a Hopper kernel with
   the KV cache kept on the card between segments: ``decode_segment``
@@ -315,28 +317,32 @@ class GenerationService(_OverloadControlMixin):
     ``requests_completed``. ``variables`` is a state_dict for ``model`` or
     None for its own parameters; they are copied to ``device``.
 
+    Both model families, as in the JAX package: a Transformer's requests
+    coalesce by power-of-two prompt bucket (ragged prompts share a batch),
+    MusicRNN's by exact prompt length, each run by ``generate_ids``' LSTM
+    path (no decode kernel serves it, so nothing is built for it and no
+    cache limit refuses it).
+
     What differs from the JAX package: ``device`` (the card by default,
     raising where torch has no CUDA; ``"cpu"`` runs the plain paths of
     ``generate_ids``); on the card the constructor builds and loads the
-    kernels its route needs, so a build failure raises here and not in a
-    request. On the card, a request whose padded cache no decode kernel
-    admits (``_kernel_admits``) is refused, where the JAX package runs it
-    unfused. ``mesh`` must be None (ROADMAP.md, Queue 1 item 8). There is no
-    ``wide_batch_pad``: the JAX package pads every batch of a wide model to
-    ``max_batch_size`` because each batch size is a multi-minute Mosaic
-    compile, while a CUDA kernel has no per-shape compile and ``decode_wide``
-    at 8 rows costs more than at 1. The JAX worker keeps one batch in flight, since its
-    ``generate_ids`` returns a device array; the port's returns host ids, so
-    each batch is harvested as soon as it has run.
+    kernels a Transformer's route needs, so a build failure raises here and
+    not in a request. On the card, a Transformer request whose padded cache
+    no decode kernel admits (``_kernel_admits``) is refused, where the JAX
+    package runs it unfused. ``mesh`` must be None (ROADMAP.md, Queue 1
+    item 8). There is no ``wide_batch_pad``: the JAX package pads every
+    batch of a wide model to ``max_batch_size`` because each batch size is a
+    multi-minute Mosaic compile, while a CUDA kernel has no per-shape compile
+    and ``decode_wide`` at 8 rows costs more than at 1. The JAX worker keeps
+    one batch in flight, since its ``generate_ids`` returns a device array;
+    the port's returns host ids, so each batch is harvested as soon as it
+    has run.
     """
 
     def __init__(self, model, model_type: ModelType, variables, vocab_size: int,
                  max_batch_size: int = 8, max_wait_ms: float = 20.0, seed: int = 0,
                  max_queue_depth: int = 0, default_deadline_ms: float = 0.0, mesh=None,
                  device=None):
-        if model_type != ModelType.TRANSFORMER:
-            raise NotImplementedError(
-                "MusicRNN generation is not ported yet (ROADMAP.md, Queue 1 item 6).")
         if mesh is not None:
             raise NotImplementedError(
                 "Serving on a device mesh is not ported yet (ROADMAP.md, Queue 1 item 8).")
@@ -348,10 +354,12 @@ class GenerationService(_OverloadControlMixin):
         self.params = {name: t.detach().to(self.device) for name, t in state.items()}
         self.max_batch_size = max(1, int(max_batch_size))
         self.max_wait_s = max(0.0, float(max_wait_ms) / 1000.0)
+        transformer = model_type == ModelType.TRANSFORMER
         # Read once here: request checks run on handler threads, which make
         # no CUDA call.
-        self._weights_outgrow_l2 = gen._weights_outgrow_fast_memory(model, self.device)
-        if self.device.type == "cuda":
+        self._weights_outgrow_l2 = (transformer
+                                    and gen._weights_outgrow_fast_memory(model, self.device))
+        if self.device.type == "cuda" and transformer:
             from composer_tpu_torch.ops import _build
 
             libraries = (("decode_wide",) if self._weights_outgrow_l2
@@ -385,8 +393,9 @@ class GenerationService(_OverloadControlMixin):
     def _validate(self, request: _Request):
         super()._validate(request)
         cache_len = sum(self._signature(request))  # the batch's prompt width + length
-        if self.device.type == "cuda" and not _kernel_admits(
-                self.model, self.model_type, cache_len, self._weights_outgrow_l2):
+        if (self.device.type == "cuda" and self.model_type == ModelType.TRANSFORMER
+                and not _kernel_admits(
+                    self.model, self.model_type, cache_len, self._weights_outgrow_l2)):
             raise InvalidParameterError(
                 f"No decode kernel admits a {cache_len}-row cache for this model (prompt "
                 f"{request.prompt_ids.shape[0]} and length {request.length}, each rounded up "
@@ -398,12 +407,15 @@ class GenerationService(_OverloadControlMixin):
             self._seed += 1
             return self._seed
 
-    @staticmethod
-    def _signature(request: _Request):
+    def _signature(self, request: _Request):
         """Coalescing key: the power-of-two buckets of the prompt length
         (ragged prompts share a batch) and of the length. Sampling settings
-        are per-row operands and never split a batch."""
-        return (_pow2_ceil(int(request.prompt_ids.shape[0])), _pow2_ceil(request.length))
+        are per-row operands and never split a batch. MusicRNN has no ragged
+        prompts, so it keys on the exact prompt length."""
+        prompt_len = int(request.prompt_ids.shape[0])
+        if self.model_type == ModelType.TRANSFORMER:
+            prompt_len = _pow2_ceil(prompt_len)
+        return (prompt_len, _pow2_ceil(request.length))
 
     def _serve(self):
         while True:
@@ -455,7 +467,7 @@ class GenerationService(_OverloadControlMixin):
             # the last request, its prompt and its sampling settings.
             filled = batch + [batch[-1]] * pad
             plens = np.asarray([r.prompt_ids.shape[0] for r in filled], np.int32)
-            width = _pow2_ceil(int(plens.max()))
+            width = self._signature(batch[0])[0]  # the bucket; MusicRNN's exact length
             prompts = np.zeros((padded, width), np.int32)
             for row, r in enumerate(filled):
                 prompts[row, :plens[row]] = r.prompt_ids
@@ -467,7 +479,8 @@ class GenerationService(_OverloadControlMixin):
             ids = gen.generate_ids(
                 self.model, self.model_type, self.params, prompts, length=bucket_len,
                 temperature=temps, seed=self._next_seed(), top_k=topks, top_p=topps,
-                prompt_lengths=plens, engine="auto")
+                prompt_lengths=plens if self.model_type == ModelType.TRANSFORMER else None,
+                engine="auto")
             if gen.SPEC_DISPATCHES > spec_before and gen.LAST_SPEC_STATS is not None:
                 # Served by the speculative kernel: its realized acceptance,
                 # tokens per generation block (``LAST_SPEC_STATS[1]``, the

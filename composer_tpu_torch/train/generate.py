@@ -17,6 +17,10 @@ Four engines, as in the JAX package:
 * the unfused path (``engine="xla"``, the JAX package's name for it): a
   prefill forward, then one cached forward and one sampling call per token.
 
+MusicRNN has one path whatever the engine (``_rnn_generate``): the prompt
+through the LSTM in eval mode, then one forward of one token and one
+sampling call per event, the carry threaded through.
+
 Routing (``generate_ids``), with the JAX package's gates: ``auto`` on a
 CUDA device sends a transformer with layer norm whose packed weights
 (``_packed_weight_bytes``) exceed the card's L2 to the wide kernel, and
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from composer_tpu_torch.models import ModelType
+from composer_tpu_torch.models.music_rnn import init_state as rnn_init_state
 from composer_tpu_torch.models.transformer import init_cache
 from composer_tpu_torch.ops import decode_kernel as dk
 from composer_tpu_torch.ops import decode_kernel_wide as dkw
@@ -156,6 +161,20 @@ def _transformer_generate(model, params, prompt, generator, length: int, cache_l
         remaining -= steps
     chunks.append(token[:, None])
     return torch.cat(chunks, dim=1)
+
+
+def _rnn_generate(model, params, prompt, generator, length: int, temperature, top_k, top_p):
+    """MusicRNN decode: the prompt in one forward from zero carries, then one
+    one-token forward per event; returns the ``length`` sampled ids."""
+    state = rnn_init_state(model.config, prompt.shape[0], device=prompt.device)
+    logits, state = _apply(model, params, prompt, state)
+    token = sample_filtered_rows(generator, logits[:, -1], temperature, top_k, top_p)
+    tokens = [token]
+    for _ in range(length - 1):
+        logits, state = _apply(model, params, token[:, None], state)
+        token = sample_filtered_rows(generator, logits[:, 0], temperature, top_k, top_p)
+        tokens.append(token)
+    return torch.stack(tokens, dim=1)
 
 
 def _normalize_sampling(batch: int, temperature, top_k, top_p):
@@ -509,12 +528,12 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
 
     prompt_ids: int array ``[batch, prompt_len]`` (or ``[prompt_len]``).
     Returns ``[batch, prompt_len + length]`` on the host, prompt included.
-    ``params_or_variables`` is a ``state_dict`` for ``model`` or None for
-    the module's own parameters.
+    ``params_or_variables`` is a ``state_dict`` for ``model`` (MusicRNN's
+    with its BatchNorm running statistics) or None for the module's own.
 
-    ``prompt_lengths``: per-row real prompt lengths when rows are padded to
-    a common width; row s's generated ids are still columns
-    ``[prompt_len, prompt_len + length)``. ``temperature``/``top_k``/
+    ``prompt_lengths`` (transformers only): per-row real prompt lengths when
+    rows are padded to a common width; row s's generated ids are still
+    columns ``[prompt_len, prompt_len + length)``. ``temperature``/``top_k``/
     ``top_p`` are scalars or per-row vectors; a row with temperature <= 0
     decodes greedily. ``engine``: ``auto``, ``spec``, ``megakernel``,
     ``wide`` or ``xla`` (see the module docstring). After a speculative run,
@@ -526,10 +545,6 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
     squeeze = prompt_host.ndim == 1
     if squeeze:
         prompt_host = prompt_host[None]
-    if model_type != ModelType.TRANSFORMER:
-        raise NotImplementedError(
-            "MusicRNN generation is not ported yet (ROADMAP.md, Queue 1 item 6)."
-        )
     temps, topks, topps = _normalize_sampling(prompt_host.shape[0], temperature, top_k, top_p)
     # Off values normalize to the canonical "disabled" encoding.
     topks = np.where(topks > 0, topks, 0)
@@ -537,6 +552,8 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
 
     plens = None
     if prompt_lengths is not None:
+        if model_type != ModelType.TRANSFORMER:
+            raise ValueError("prompt_lengths is only supported for transformers")
         plens = np.asarray(prompt_lengths, np.int32).reshape(-1)
         if np.all(plens == prompt_host.shape[1]):
             plens = None  # uniform: the fixed-length paths
@@ -544,7 +561,12 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
     if cache_len is None:
         cache_len = prompt_host.shape[1] + length
     device = _device(model, params_or_variables)
-    if _use_spec_kernel(model, model_type, prompt_host.shape[0], cache_len, engine, device,
+    if model_type != ModelType.TRANSFORMER:
+        generated = _rnn_generate(
+            model, params_or_variables, torch.as_tensor(prompt_host, device=device).long(),
+            torch.Generator(device=device).manual_seed(seed), length,
+            *(torch.as_tensor(v, device=device) for v in (temps, topks, topps)))
+    elif _use_spec_kernel(model, model_type, prompt_host.shape[0], cache_len, engine, device,
                         temps):
         prompt = prompt_host if plens is None else prompt_host[:, :int(plens[0])]
         generated = _spec_generate(model, params_or_variables, prompt, length, temps, seed,

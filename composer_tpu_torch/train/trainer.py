@@ -1,11 +1,18 @@
-"""The training loop: port of ``composer_tpu/train/trainer.py`` (Transformer).
+"""The training loop: port of ``composer_tpu/train/trainer.py``, for both model families.
 
 One eager train step: forward in training mode (dropout from an explicit
 ``torch.Generator``), f32 cross-entropy, backward (through the flash
-kernels when the model routes attention there), global-norm clipping and
-Adam. Parameters and optimizer state stay float32; with ``mixed_precision``
-on a CUDA device the model computes in bfloat16, as the JAX package does on
-the TPU.
+kernels when the Transformer routes attention there), global-norm clipping
+and Adam. Parameters and optimizer state stay float32; with
+``mixed_precision`` on a CUDA device the model computes in bfloat16, as the
+JAX package does on the TPU.
+
+MusicRNN is stateful: its LSTM carry runs on from one batch to the next
+through an epoch (reset at each epoch unless ``reset_rnn_state_each_epoch``
+is False) and through ``evaluate``'s batches in dataset order, and is
+detached after each step, so that no gradient crosses a batch. Its training
+forward updates the BatchNorm running statistics in place; the checkpoint
+holds them with the weights.
 
 Optimizer parity with optax (``make_optimizer``): Adam with eps 1e-7,
 ``linear_schedule(0, lr, warmup)`` evaluated at the update count before the
@@ -17,8 +24,8 @@ rescales by ``max_norm / norm`` only when ``norm >= max_norm`` (unlike
 Chrome trace, with the card's kernels when the trainer runs on CUDA) of the
 call's steps [2, 2 + profile_steps).
 
-Not ported: MusicRNN (ROADMAP.md, Queue 1 item 6), a device mesh (item 8)
-and the TPU dropout-generator choice (``dropout_rng_impl``).
+Not ported: a device mesh (ROADMAP.md, Queue 1 item 8) and the TPU
+dropout-generator choice (``dropout_rng_impl``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from tqdm import tqdm
 from composer_tpu_torch import ModelSaveFrequencyMode
 from composer_tpu_torch.exceptions import CheckpointError
 from composer_tpu_torch.models import ModelType
+from composer_tpu_torch.models.music_rnn import init_state as rnn_init_state
 from composer_tpu_torch.train.checkpoint import CheckpointManager
 from composer_tpu_torch.train.metrics import MetricsWriter
 
@@ -45,7 +53,9 @@ from composer_tpu_torch.train.metrics import MetricsWriter
 @dataclasses.dataclass
 class TrainState:
     """Counters (both start at 1, as in the JAX package) and the live model
-    and optimizer, which the train step updates in place."""
+    and optimizer, which the train step updates in place (MusicRNN's
+    BatchNorm statistics are buffers of the model, so its ``state_dict``
+    holds them)."""
 
     step: int
     epoch: int
@@ -159,19 +169,17 @@ def make_optimizer(learning_rate: float, eps: float = 1e-7, warmup_steps: int = 
 
 
 class Trainer:
-    """Train/evaluate driver for the Transformer. Runs on ``device``: the
-    CUDA card unless the caller asks for ``"cpu"``."""
+    """Shared train/evaluate loop for both model families. Runs on
+    ``device``: the CUDA card unless the caller asks for ``"cpu"``."""
 
     def __init__(self, model, model_type: ModelType, learning_rate: float, mesh=None,
                  seed: int = 0, warmup_steps: int = 0, gradient_clip_norm: float = 0.0,
                  device="cuda"):
-        if model_type != ModelType.TRANSFORMER:
-            raise NotImplementedError(
-                "MusicRNN training is not ported yet (ROADMAP.md, Queue 1 item 6).")
         if mesh is not None:
             raise NotImplementedError(
                 "Training on a device mesh is not ported yet (ROADMAP.md, Queue 1 item 8).")
         self.model = model
+        self.model_type = model_type
         self.optimizer = make_optimizer(learning_rate, warmup_steps=warmup_steps,
                                         gradient_clip_norm=gradient_clip_norm)
         self.seed = seed
@@ -179,8 +187,9 @@ class Trainer:
 
     # ------------------------------------------------------------------ state
     def init_state(self, batch_size: int, window_size: int) -> TrainState:
-        """Fresh parameters from ``seed`` (the Flax initializers) on the
-        device, and a fresh optimizer. The batch shape is not needed to
+        """Fresh parameters from ``seed`` (the Flax initializers; MusicRNN's
+        running statistics 0 and 1) on the device, and a fresh optimizer.
+        The batch shape is not needed to
         build a PyTorch module; it is kept for the JAX package's interface."""
         del batch_size, window_size
         self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
@@ -192,39 +201,66 @@ class Trainer:
         """The dropout stream of one ``train`` call, seeded by ``seed + 1``."""
         return torch.Generator(device=self.device).manual_seed(self.seed + 1)
 
+    def init_rnn_carry(self, batch_size: int):
+        """Zeroed MusicRNN carries on the device; None for the Transformer."""
+        if self.model_type != ModelType.MUSIC_RNN:
+            return None
+        return rnn_init_state(self.model.config, batch_size, device=self.device)
+
     # ------------------------------------------------------------------ steps
     def _place_batch(self, x, y):
         return (torch.as_tensor(x).to(self.device, torch.long),
                 torch.as_tensor(y).to(self.device, torch.long))
 
-    def train_step(self, state: TrainState, x, y, generator=None) -> dict:
+    def _forward(self, model, x, carry, **kwargs):
+        """The model's logits and, for MusicRNN, its new carry (detached)."""
+        if self.model_type == ModelType.TRANSFORMER:
+            logits, _ = model(x, **kwargs)
+            return logits, carry
+        logits, new_carry = model(x, carry, **kwargs)
+        return logits, tuple((c.detach(), h.detach()) for c, h in new_carry)
+
+    def train_step(self, state: TrainState, x, y, generator=None, carry=None) -> dict:
         """One update; returns the step's loss and accuracy as device scalars
-        (no host synchronisation)."""
+        (no host synchronisation) and, for MusicRNN, the new carry under
+        ``"carry"`` (``carry`` None starts from zeros)."""
         x, y = self._place_batch(x, y)
         state.model.train()
         state.optimizer.zero_grad()
-        logits, _ = state.model(x, deterministic=False, generator=generator)
+        logits, carry = self._forward(state.model, x, carry, deterministic=False,
+                                      generator=generator)
         loss, accuracy = cross_entropy_and_accuracy(logits, y)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "accuracy": accuracy}
+        metrics = {"loss": loss.detach(), "accuracy": accuracy}
+        if carry is not None:
+            metrics["carry"] = carry
+        return metrics
 
     @torch.no_grad()
-    def eval_step(self, state: TrainState, x, y) -> dict:
+    def eval_step(self, state: TrainState, x, y, carry=None) -> dict:
+        """Loss and accuracy as device scalars and, for MusicRNN, the new
+        carry under ``"carry"``."""
         x, y = self._place_batch(x, y)
         state.model.eval()
-        logits, _ = state.model(x)
+        logits, carry = self._forward(state.model, x, carry)
         loss, accuracy = cross_entropy_and_accuracy(logits, y)
-        return {"loss": loss, "accuracy": accuracy}
+        metrics = {"loss": loss, "accuracy": accuracy}
+        if carry is not None:
+            metrics["carry"] = carry
+        return metrics
 
     # ------------------------------------------------------------------- loop
     def train(self, dataset, state: TrainState, logdir, epochs: Optional[int] = 10,
               save_frequency_mode=ModelSaveFrequencyMode.EPOCH, save_frequency: int = 1,
-              max_checkpoints: int = 1, show_progress_bar: bool = True, profile_dir=None,
+              max_checkpoints: int = 1, show_progress_bar: bool = True,
+              reset_rnn_state_each_epoch: bool = True, profile_dir=None,
               profile_steps: int = 5) -> TrainState:
         """Runs the epoch/batch loop with checkpointing and scalars under
-        ``<logdir>/train``; always leaves a final checkpoint.
+        ``<logdir>/train``; always leaves a final checkpoint. MusicRNN's
+        carry starts at zeros and runs on through the batches, reset at each
+        epoch when ``reset_rnn_state_each_epoch``.
 
         ``profile_dir`` captures a ``torch.profiler`` trace of this call's
         steps [2, 2 + profile_steps) into ``<profile_dir>/trace.json`` (a
@@ -239,6 +275,7 @@ class Trainer:
         checkpoints = CheckpointManager(logdir, max_to_keep=max_checkpoints)
         writer = MetricsWriter(logdir / "train")
         generator = self.make_dropout_generator()
+        carry = self.init_rnn_carry(dataset.batch_size)
         steps_per_epoch = len(dataset)
         events_per_batch = dataset.batch_size * dataset.window_size
 
@@ -255,6 +292,8 @@ class Trainer:
                 current_epoch = state.epoch
                 logging.info("Epoch %s",
                              current_epoch if epochs is None else f"{current_epoch}/{epochs}")
+                if reset_rnn_state_each_epoch:
+                    carry = self.init_rnn_carry(dataset.batch_size)
                 epoch_loss, epoch_accuracy, batch_count = 0.0, 0.0, 0
                 pending = []  # (global_step, device metrics) not yet fetched
                 progress = tqdm(total=steps_per_epoch, disable=not show_progress_bar)
@@ -283,7 +322,8 @@ class Trainer:
                         span = (torch.profiler.record_function(f"train_step {global_step + 1}")
                                 if profiler is not None else contextlib.nullcontext())
                         with span:
-                            metrics = self.train_step(state, x, y, generator)
+                            metrics = self.train_step(state, x, y, generator, carry)
+                        carry = metrics.pop("carry", None)
                         global_step += 1
                         if profiler is not None and run_steps == 1 + profile_steps:
                             self._stop_profile(profiler, profile_dir)
@@ -342,8 +382,11 @@ class Trainer:
         logging.info("Wrote a profiler trace to '%s'.", profile_dir / "trace.json")
 
     def evaluate(self, dataset, state: TrainState, scan_chunk: int = 64) -> dict:
-        """Mean loss/accuracy/perplexity over a dataset. Batch metrics stay
-        on the device and are fetched every ``scan_chunk`` batches."""
+        """Mean loss/accuracy/perplexity over a dataset (the NLL parity
+        surface). Batch metrics stay on the device and are fetched every
+        ``scan_chunk`` batches. MusicRNN's carry starts at zeros and runs
+        through every batch in dataset order, as the JAX package's scan."""
+        carry = self.init_rnn_carry(dataset.batch_size)
         total_loss, total_accuracy, batches = 0.0, 0.0, 0
         pending = []
 
@@ -355,7 +398,8 @@ class Trainer:
             pending.clear()
 
         for x, y in dataset:
-            metrics = self.eval_step(state, x, y)
+            metrics = self.eval_step(state, x, y, carry)
+            carry = metrics.get("carry")
             pending.append(torch.stack([metrics["loss"], metrics["accuracy"]]))
             batches += 1
             if len(pending) >= scan_chunk:

@@ -173,8 +173,6 @@ def test_routing(setup, monkeypatch):
     assert calls == [(1, 5)]
     with pytest.raises(ValueError, match="unknown engine"):
         gen.generate_ids(model, ModelType.TRANSFORMER, None, PROMPTS, length=3, engine="fast")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gen.generate_ids(model, ModelType.MUSIC_RNN, None, PROMPTS, length=3)
 
 
 def test_normalize_sampling_and_cache_padding():

@@ -634,8 +634,8 @@ def test_server_admits_a_burst_of_connections():
 
 
 def test_service_devices_and_refusals():
-    """The card by default, raising where torch has no CUDA; a mesh and a
-    MusicRNN model are refused with their ROADMAP items."""
+    """The card by default, raising where torch has no CUDA; a mesh is
+    refused with its ROADMAP item."""
     model = _pair()[2]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -643,8 +643,6 @@ def test_service_devices_and_refusals():
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         GenerationService(model, ModelType.TRANSFORMER, None, VOCAB, mesh=object(),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        GenerationService(model, ModelType.MUSIC_RNN, None, VOCAB, device="cpu")
 
 
 # ----------------------------------------------------- against the JAX server

@@ -231,7 +231,5 @@ def test_train_loop_checkpoints_and_resumes(tmp_path):
 
 def test_unported_options_raise():
     model = Transformer(TransformerConfig(**_kwargs()))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Trainer(model, ModelType.MUSIC_RNN, LR, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         Trainer(model, ModelType.TRANSFORMER, LR, mesh=object(), device="cpu")

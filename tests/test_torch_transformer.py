@@ -105,8 +105,6 @@ def test_create_model_from_default_config():
     assert (vocab, config.embed_dim, config.num_layers, config.num_heads) == (390, 256, 8, 16)
     assert config.window_size == 1024 and config.head_dim == 16
     assert config.dtype == torch.float32  # CPU stays float32
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        create_model(ModelType.MUSIC_RNN, get_default(), device="cpu")
 
 
 def test_create_model_defaults_to_the_card():
@@ -128,8 +126,8 @@ def test_port_imports_no_jax():
     """No module of the port (the CLI and the modules it needs included),
     and neither ``chip_smoke`` nor ``scripts/spec_acceptance.py`` (imported
     as modules, without running ``main``), loads JAX or anything of the JAX
-    package ``composer_tpu``.
-    conftest imports JAX here, so the check runs in a fresh interpreter."""
+    package ``composer_tpu`` (nor TensorFlow, which only ``import-checkpoint``
+    loads, inside the call). conftest imports JAX here, so the check runs in a fresh interpreter."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import composer_tpu_torch\n"
@@ -142,13 +140,14 @@ def test_port_imports_no_jax():
         "'scripts/spec_acceptance.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'composer_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'composer_tpu', 'tensorflow'))\n"
         "missing = {'composer_tpu_torch.ops.decode_kernel_spec', "
         "'composer_tpu_torch.ops.decode_kernel_segmented', 'composer_tpu_torch.serving', "
         "'composer_tpu_torch.midi.midi_io', 'composer_tpu_torch.cli', "
         "'composer_tpu_torch.utils', 'composer_tpu_torch.logging_utils', "
         "'composer_tpu_torch.click_utils', 'composer_tpu_torch.midi.fast_encode', "
-        "'composer_tpu_torch.midi.serialization', 'composer_tpu_torch.data.preprocess'} "
+        "'composer_tpu_torch.midi.serialization', 'composer_tpu_torch.data.preprocess', "
+        "'composer_tpu_torch.models.music_rnn', 'composer_tpu_torch.train.import_reference'} "
         "- set(names)\n"
         "print(len(names), 'modules;', bad, 'missing', missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n"
