@@ -267,8 +267,22 @@ Phases (any failure exits non-zero):
    greedy request must show in ``/v1/health``'s spec gauges and equal the
    in-process greedy run, and 8 sampled requests at once launch
    ``decode_generate`` B>1; and ``serve --continuous`` with one request
-   launches ``decode_segment``. Prints each command's wall time, the train
-   step time and events/s, evaluate's loss, and generate's events/s.
+   launches ``decode_segment``. The rest of the CLI on the same corpus: the
+   native codec (``composer_tpu_torch/native``, built by g++ beside the
+   kernels) must be loaded and parse each of the 24 files into the Python
+   parser's arrays; ``preprocess --no-transform -w 1`` in process with it
+   and with the Python paths (identical ``.data`` trees, a host-only
+   comparison of times); ``export-dataset`` of ``processed/``, whose
+   batches must equal ``get_dataset``'s on the directory with shuffling
+   off; ``evaluate`` on the ``.tfrecord`` (flash forwards only) and ``train
+   -e 1`` from it (8 flash launches a step each way, finite losses);
+   ``summary``, ``visualize-training``, ``synthesize --renderer builtin`` of
+   the sampled MIDI (a WAV that is not silent); ``profile --steps 2
+   --decode-length 64`` (24 flash backwards: a warm-up step and two traced,
+   at least as many forwards, two ``decode_generate`` B=1 launches), whose
+   Chrome trace must hold those kernels by name. Prints each command's wall
+   time, the train step time and events/s, evaluate's loss, and generate's
+   events/s.
 
 12. MusicRNN (``rnn_path``) at the default config's widths (vocab 390,
    embed 256, 3 LSTM layers of 512, dropout 0.3, BatchNorm), bf16 compute:
@@ -3812,6 +3826,189 @@ def serve_subprocess(args, log: Path, requests) -> tuple:
     return up_s, responses, health, json.loads(lines[-1].split(marker, 1)[1])
 
 
+def native_codec_path(raw: Path, tmp: Path, seed, card: str, record) -> None:
+    """The native codec must be loaded and parse every corpus file into the
+    Python parser's arrays; ``preprocess`` in process (one worker, no
+    augmentation) with it and with the Python paths writes identical trees.
+    Both times are host time only."""
+    from composer_tpu_torch import native
+    from composer_tpu_torch.midi import midi_io
+    from composer_tpu_torch.native import loader as native_loader
+
+    if not native.available():
+        raise AssertionError("the native codec library did not load")
+    for path in sorted(raw.glob("*.mid")):
+        data = path.read_bytes()
+        ours = native.parse_midi_arrays(data)
+        plain = midi_io._parsed_arrays_from_midifile(midi_io.parse_midi(data))
+        if ours is None or ours.keys() != plain.keys() or any(
+                ours[key].dtype != plain[key].dtype or not np.array_equal(ours[key], plain[key])
+                for key in plain):
+            raise AssertionError(f"native parse of {path.name} differs from the Python parser's")
+    trees, walls = {}, {}
+    for name in ("native", "python"):
+        out = tmp / f"processed_{name}"
+        if name == "python":
+            native_loader._LIBRARY = False  # what a failed build leaves: the Python paths
+        try:
+            walls[name], _ = cli_command([*seed, "preprocess", "transformer", raw, out, "-c",
+                                          tmp / "config.yml", "-w", 1, "--no-transform",
+                                          "--no-metadata"])
+        finally:
+            native_loader._LIBRARY = None
+        trees[name] = {str(f.relative_to(out)): f.read_bytes()
+                       for f in sorted(out.rglob("*.data"))}
+    record("preprocess -w 1 --no-transform (native)", walls["native"], {})
+    if not native.available() or trees["native"] != trees["python"] or not trees["native"]:
+        raise AssertionError("preprocess with the native codec and with the Python paths "
+                             "wrote different .data trees")
+    print(f"cli preprocess, native codec: {CLI_FILES} MIDI files parsed by the native parser "
+          f"into the Python parser's arrays; preprocess -w 1 --no-transform in process "
+          f"{walls['native']:.3f} s with the native codec, {walls['python']:.3f} s on the "
+          f"Python paths ({walls['python'] / walls['native']:.2f}x; host only, no device "
+          f"work), identical .data trees ({len(trees['native'])} files) [{card}]", flush=True)
+
+
+def tfrecord_path(processed: Path, tmp: Path, logdir: Path, config, seed, card: str,
+                  record) -> None:
+    """``export-dataset`` of ``processed/``, read back against ``get_dataset``
+    on the directory; ``evaluate`` on the ``.tfrecord`` (flash forwards only)
+    and ``train -e 1`` from it (8 launches a step each way)."""
+    from composer_tpu_torch import cli as cli_module
+    from composer_tpu_torch.data import tfrecord
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.train import trainer as trainer_module
+
+    corpus = tmp / "corpus.tfrecord"
+    wall, counts = cli_command([*seed, "export-dataset", "transformer", processed, corpus, "-c",
+                                tmp / "config.yml"])
+    record("export-dataset", wall, counts)
+    header, batches = tfrecord.load_tfrecord_dataset(corpus)
+    np.random.seed(CLI_SEED)  # the file order the command drew under --seed
+    expected = list(cli_module.get_dataset(ModelType.TRANSFORMER, processed, config,
+                                           shuffle_dataset=False, show_progress_bar=False))
+    same = len(batches) == len(expected) > 0 and all(
+        np.array_equal(x, x0) and np.array_equal(y, y0)
+        for (x, y), (x0, y0) in zip(batches, expected))
+    print(f"cli export-dataset: {wall:.3f} s, {corpus.stat().st_size} bytes, {len(batches)} "
+          f"batches of {header['batch_size']} x {header['window_size']}, equal to get_dataset's "
+          f"on the directory: {same} [{card}]", flush=True)
+    if not same or any(counts.values()):
+        raise AssertionError(f"cli export-dataset: batches equal {same}, launches {counts}")
+
+    scores = []
+    evaluate = trainer_module.Trainer.evaluate
+    trainer_module.Trainer.evaluate = \
+        lambda self, *a, **k: scores.append(evaluate(self, *a, **k)) or scores[-1]
+    try:
+        wall, counts = cli_command([*seed, "evaluate", "transformer", corpus, logdir])
+    finally:
+        trainer_module.Trainer.evaluate = evaluate
+    record("evaluate .tfrecord", wall, counts)
+    print(f"cli evaluate on the .tfrecord: {wall:.3f} s, loss {scores[0]['loss']:.6f}, accuracy "
+          f"{scores[0]['accuracy']:.6f} over {len(batches)} batches; launches {counts} [{card}]",
+          flush=True)
+    if counts["flash_fwd mma 16"] != 8 * len(batches) or counts["flash_bwd mma 16"] \
+            or not np.isfinite(scores[0]["loss"]):
+        raise AssertionError(f"cli evaluate .tfrecord: launches {counts}, metrics {scores}")
+
+    spans = Spans({"step": (trainer_module.Trainer, "train_step")})
+    wall, counts = cli_command([*seed, "train", "transformer", corpus, "-c", tmp / "config.yml",
+                                "--logdir", tmp / "logs_tfrecord", "-e", 1, "--save-freq-mode",
+                                "epoch", "--no-show-progress-bar"], spans)
+    record("train .tfrecord", wall, counts)
+    steps = spans.seconds["step"]
+    logdir = next((tmp / "logs_tfrecord").glob("transformer-*"))
+    rows = [json.loads(line) for line in
+            (logdir / "train" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in sorted(rows, key=lambda r: r["step"]) if r["name"] == "loss"]
+    print(f"cli train from the .tfrecord: {wall:.3f} s, {len(steps)} steps, step "
+          f"{float(np.mean(steps[1:])) * 1e3:.2f} ms (steps 2-, host clock after synchronize), "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts} [{card}]", flush=True)
+    expected = (8 * len(steps),) * 2
+    if len(steps) != len(batches) or not np.all(np.isfinite(losses)) \
+            or (counts["flash_fwd mma 16"], counts["flash_bwd mma 16"]) != expected:
+        raise AssertionError(f"cli train .tfrecord: {len(steps)} steps, launches {counts}, "
+                             f"wanted {expected}; losses {losses}")
+
+
+def printed_by(args) -> tuple:
+    """``cli_command`` with the command's standard output captured:
+    ``(wall seconds, launches, its lines)``."""
+    import io
+
+    sink = io.StringIO()
+    with contextlib.redirect_stdout(sink):
+        wall, counts = cli_command(args)
+    return wall, counts, sink.getvalue().splitlines()
+
+
+def info_commands(processed: Path, tmp: Path, seed, card: str, record) -> None:
+    """``summary`` and ``visualize-training`` at the phase's config."""
+    from composer_tpu_torch.config import get as get_config
+    from composer_tpu_torch.models import ModelType, create_model
+
+    wall, counts, lines = printed_by([*seed, "summary", "transformer", "-c", tmp / "config.yml"])
+    record("summary", wall, counts)
+    model, _ = create_model(ModelType.TRANSFORMER, get_config(tmp / "config.yml"), device="cpu")
+    total = sum(p.numel() for p in model.parameters())
+    print(f"cli summary: {wall:.3f} s, {len(lines)} lines; {lines[-2]}; {lines[-1]} [{card}]",
+          flush=True)
+    if lines[-1] != "Event vocabulary size: 390" \
+            or not lines[-2].startswith(f"Total parameters: {total:,} "):
+        raise AssertionError(f"cli summary printed {lines[-2:]}, wanted {total:,} parameters")
+
+    wall, counts, lines = printed_by([*seed, "visualize-training", "transformer", processed,
+                                      "-c", tmp / "config.yml", "--steps", 8])
+    record("visualize-training", wall, counts)
+    print(f"cli visualize-training: {wall:.3f} s; {lines[1][:100]} ... [{card}]", flush=True)
+    if len(lines) != 6 + 3 * 8 or lines[-3] != "Step 8" or any(counts.values()):
+        raise AssertionError(f"cli visualize-training printed {lines[:3]} ... {lines[-3:]}")
+
+
+def synthesize_command(midi: Path, seed, card: str, record) -> None:
+    """``synthesize --renderer builtin`` of a generated MIDI file."""
+    import wave
+
+    wall, counts = cli_command([*seed, "synthesize", midi, "--renderer", "builtin"])
+    record("synthesize", wall, counts)
+    with wave.open(str(midi.with_suffix(".wav"))) as handle:
+        frames, rate = handle.getnframes(), handle.getframerate()
+        pcm = np.frombuffer(handle.readframes(frames), "<i2")
+    peak = int(np.abs(pcm).max()) if pcm.size else 0
+    print(f"cli synthesize --renderer builtin: {wall:.3f} s (host only) for "
+          f"{frames / rate:.2f} s of audio at {rate} Hz, peak {peak} [{card}]", flush=True)
+    if peak < 1000 or frames < rate:
+        raise AssertionError(f"cli synthesize wrote {frames} frames, peak {peak}")
+
+
+PROFILE_KERNELS = ("flash_forward_mma_kernel", "flash_backward_mma_kernel",
+                   "decode_generate_kernel")
+
+
+def profile_command(tmp: Path, seed, card: str, record) -> None:
+    """``profile --steps 2 --decode-length 64`` with the phase's flash config:
+    a warm-up step and decode, then two traced steps and a traced decode;
+    the Chrome trace must hold the hand-written kernels' launches by name."""
+    out = tmp / "profile"
+    wall, counts = cli_command([*seed, "profile", "transformer", out, "-c", tmp / "config.yml",
+                                "--steps", 2, "--decode-length", 64])
+    record("profile", wall, counts)
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {name: sum(1 for e in kernels if name in str(e.get("name", "")))
+               for name in PROFILE_KERNELS}
+    decode = [e for e in events if e.get("name") == "decode"]
+    print(f"cli profile --steps 2 --decode-length 64: {wall:.3f} s, trace "
+          f"{(out / 'trace.json').stat().st_size} bytes, {len(kernels)} kernel events, by name "
+          f"{by_name}, decode span {len(decode)}; launches {counts} [{card}]", flush=True)
+    if counts["flash_bwd mma 16"] != 8 * 3 or counts["flash_fwd mma 16"] < 8 * 3 \
+            or counts["single"] != 2 or counts["batched"] or counts["spec"] \
+            or not all(by_name.values()) or not decode:
+        raise AssertionError(f"cli profile: launches {counts}, trace kernels {by_name}, "
+                             f"decode spans {len(decode)}")
+
+
 def cli_path(device, card: str) -> dict:
     """Phase 11: the port's CLI on the card, at the default model's full
     width. Returns the launches of each kernel over the phase's commands
@@ -3859,6 +4056,7 @@ def cli_path(device, card: str) -> dict:
             # each train file and its 9 transposed or stretched copies
             raise AssertionError(f"preprocess wrote {train_files} train / {test_files} test "
                                  f"files, wanted {train_midi * 10} / {CLI_FILES - train_midi}")
+        native_codec_path(raw, tmp, seed, card, record)
 
         spans = Spans({"step": (trainer_module.Trainer, "train_step"),
                        "create": (cli_module, "create_model"),
@@ -3907,6 +4105,8 @@ def cli_path(device, card: str) -> dict:
         if eval_counts["flash_fwd mma 16"] < 1 or eval_counts["flash_bwd mma 16"] \
                 or not np.isfinite(scores[0]["loss"]):
             raise AssertionError(f"cli evaluate: launches {eval_counts}, metrics {scores}")
+        tfrecord_path(processed, tmp, logdir, config, seed, card, record)
+        info_commands(processed, tmp, seed, card, record)
 
         # The prompt as generate encodes it: the first 10 events of a MIDI file.
         prompt_file = raw / "piece00.mid"
@@ -3951,6 +4151,8 @@ def cli_path(device, card: str) -> dict:
             wanted = ("single", "spec") if name == "sampled" else ("spec", "single")
             if not same or counts[wanted[0]] != 1 or counts[wanted[1]] or counts["batched"]:
                 raise AssertionError(f"cli generate {name}: identical {same}, launches {counts}")
+
+        synthesize_command(tmp / "sampled.mid", seed, card, record)
 
         # The same sampled command as a user runs it: a fresh process, whose
         # start-up (interpreter, torch, the CUDA context, the kernels' load)
@@ -3997,6 +4199,8 @@ def cli_path(device, card: str) -> dict:
         if counts["segment"] < 1 or events.shape != (PROMPT_EVENTS + GENERATE_EVENTS,) \
                 or events.min() < 0 or events.max() >= 390:
             raise AssertionError(f"cli serve --continuous: launches {counts}, {events.shape}")
+
+        profile_command(tmp, seed, card, record)
 
     print("cli wall times (s; serve: until /v1/health answers): " + ", ".join(
         f"{name} {seconds:.3f}" for name, seconds in walls.items()) + f" [{card}]", flush=True)
@@ -4130,7 +4334,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
+
     from composer_tpu_torch.config import get_default
+    from composer_tpu_torch.native import loader as native_loader
     from composer_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
@@ -4143,8 +4350,6 @@ def main() -> int:
         return flash_planted_faults(device, card)
     parent = None
     if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
-        from concurrent.futures import ThreadPoolExecutor
-
         parent = ThreadPoolExecutor(1).submit(parent_libraries, sys.argv[2])
     elif sys.argv[1:]:
         print(__doc__, file=sys.stderr)
@@ -4152,7 +4357,11 @@ def main() -> int:
     start = time.perf_counter()
     libraries = ("decode_generate", "flash_attention", "spec_decode", "decode_segment",
                  "decode_wide", "decode_wide_segment")
+    native_build = ThreadPoolExecutor(1).submit(
+        lambda: (native_loader.build(), time.perf_counter() - start)[1])
     _build.build_all(libraries)
+    print(f"native codec build (g++, {native_loader.library_path().name}): "
+          f"{native_build.result():.1f} s after the start, beside nvcc", flush=True)
     for name in libraries:
         _build.load_library(name)
         print(_build.BUILD_INFO[name]["log"].strip(), flush=True)

@@ -4,14 +4,15 @@
 
 The port of ``composer_tpu/cli.py``, with its command names, arguments,
 options, defaults and exit codes: ``make-config``, ``preprocess``,
-``train``, ``evaluate``, ``generate``, ``serve`` and ``import-checkpoint``,
-for both model types (``transformer``, ``music_rnn``). The data commands
-(``make-config``, ``preprocess``) write the JAX package's files byte for
-byte, and ``train``, ``evaluate``, ``generate``, ``serve`` and
-``import-checkpoint`` run on the device that ``--device`` names: the CUDA
-card by default, the CPU when asked (``--device cpu``). Nothing falls back
-to the CPU: ``--device cuda`` where PyTorch sees no card stops with an
-error.
+``export-dataset``, ``summary``, ``visualize-training``, ``train``,
+``evaluate``, ``generate``, ``synthesize``, ``serve``, ``profile`` and
+``import-checkpoint``, for both model types (``transformer``,
+``music_rnn``). The data commands (``make-config``, ``preprocess``,
+``export-dataset``, ``visualize-training``, ``synthesize``) write or print
+what the JAX package's do, byte for byte, and the commands that build a
+model run on the device that ``--device`` names: the CUDA card by default,
+the CPU when asked (``--device cpu``). Nothing falls back to the CPU:
+``--device cuda`` where PyTorch sees no card stops with an error.
 
 What differs from the JAX CLI:
 
@@ -20,14 +21,14 @@ What differs from the JAX CLI:
   other's, so that ``--restoredir`` works across the two;
 * one device: ``--model-parallel`` above 1, and ``--data-parallel`` with more
   than one visible card, stop with an error (ROADMAP.md, Queue 1 item 8);
-* ``--profile-dir`` writes a ``torch.profiler`` Chrome trace;
+* ``--profile-dir`` and ``profile`` write a ``torch.profiler`` Chrome trace;
+* ``summary`` prints a table of the PyTorch modules (Flax's ``tabulate`` has
+  no counterpart) with the JAX model's parameter counts;
 * the ``dropout_rng_impl`` config key (a TPU dropout-generator choice) is
   read and dropped: dropout draws from a ``torch.Generator`` seeded by
   ``--seed``;
-* ``.tfrecord`` datasets, ``export-dataset``, ``summary``,
-  ``visualize-training``, ``profile``, ``synthesize`` and ``benchmark`` wait
-  for the second half of ROADMAP.md, Queue 1 item 5 (``benchmark`` also for
-  item 3).
+* ``benchmark`` is not registered: it waits for the port's bench
+  (ROADMAP.md, Queue 1 item 3).
 
 Deliberate fixes over the reference, as in the JAX CLI: ``--seed`` seeds the
 RNGs; ``--num-workers`` is honoured; ``generate`` decodes with a KV cache
@@ -39,9 +40,10 @@ from __future__ import annotations
 import datetime
 import json
 import logging
+import subprocess
 import time
 from pathlib import Path
-from shutil import copy2
+from shutil import copy2, which
 
 import click
 import numpy as np
@@ -85,8 +87,9 @@ def get_device():
 @click.option("--verbosity", "-v", default="INFO", help="Either CRITICAL, ERROR, WARNING, INFO, or DEBUG.")
 @click.option("--seed", type=int, default=None, help="Sets the seed of the random engine.")
 @click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda",
-              help="The device that train, evaluate, generate and serve run on: 'cuda' "
-                   "(the card, the default) or 'cpu'.")
+              help="The device that the commands which build a model (train, evaluate, "
+                   "generate, serve, summary, profile, import-checkpoint) run on: "
+                   "'cuda' (the card, the default) or 'cpu'.")
 def cli(verbosity, seed, device):
     """A deep learning enabled music generator (PyTorch, on an NVIDIA card)."""
     global _GLOBAL_SEED, _DEVICE
@@ -128,12 +131,13 @@ def get_dataset(
     num_workers=8,
     use_generator=False,
 ):
-    """Resolves a directory of .data files into a batch iterable (parity:
-    cli.py:185-276). ``use_generator`` selects the memory-bounded streaming
-    path (reference models/__init__.py:147-158): ids are packed once into a
-    disk cache and batches stream back per step. One process loads every
-    window (the JAX CLI shards them over its hosts)."""
-    from composer_tpu_torch.data import loader, preprocess
+    """Resolves a dataset path (directory of .data files or a .tfrecord file)
+    into a batch iterable (parity: cli.py:185-276). ``use_generator`` selects
+    the memory-bounded streaming path (reference models/__init__.py:147-158):
+    ids are packed once into a disk cache and batches stream back per step.
+    One process loads every window and every row of a record (the JAX CLI
+    shards them over its hosts)."""
+    from composer_tpu_torch.data import loader, preprocess, tfrecord
 
     if mode not in ("train", "test", ""):
         raise InvalidParameterError(
@@ -165,16 +169,40 @@ def get_dataset(
             streaming=use_generator,
         )
 
-    if dataset_path.suffix == ".tfrecord":
+    if not dataset_path.is_file() or dataset_path.suffix != ".tfrecord":
         raise InvalidParameterError(
-            f"'{dataset_path}': reading .tfrecord datasets is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5, second half: export-dataset and "
-            "data/tfrecord.py). Pass the directory of preprocessed .data files."
+            f"'{dataset_path}' is an invalid dataset path! Expected a directory "
+            "of processed files or a .tfrecord file."
         )
-    raise InvalidParameterError(
-        f"'{dataset_path}' is an invalid dataset path! Expected a directory "
-        "of processed files."
+
+    # Streaming load: batches decode lazily from an mmap'd record index, so
+    # resident memory stays O(one batch) however large the export is.
+    header, record_dataset = tfrecord.TFRecordWindowDataset.from_file(
+        dataset_path, shuffle=shuffle_dataset, seed=get_seed(),
+        shard_count=1, shard_index=0,
     )
+    dataset_model_type = ModelType(header["model_type"])
+    if dataset_model_type != model_type:
+        logging.warning(
+            "Model type mismatch when loading '%s'. Expected %s but found %s. "
+            "The TFRecord was probably exported with a different config.",
+            dataset_path, model_type, dataset_model_type,
+        )
+        click.confirm(
+            "Do you want to continue? This may cause errors or corrupt the training session.",
+            abort=True,
+        )
+    if header["batch_size"] != get_batch_size(model_type, config):
+        raise DatasetError(
+            f"Expected a batch size of {get_batch_size(model_type, config)} "
+            f"but found {header['batch_size']}."
+        )
+    if header["window_size"] != get_window_size(model_type, config):
+        raise DatasetError(
+            f"Expected a window size of {get_window_size(model_type, config)} "
+            f"but found {header['window_size']}."
+        )
+    return record_dataset
 
 
 @cli.command()
@@ -237,6 +265,131 @@ def preprocess(model_type, dataset_path, output_directory, num_workers, config_f
                 indent=True,
             )
         copy2(config.filepath or get_default_config(), output_directory / "config.yml")
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("preprocessed-path")
+@click.argument("output-path")
+@click.option("-c", "--config", "config_filepath", default=None,
+              help="The path to the model configuration file. If unspecified, uses the default config.")
+@click.option("--use-generator/--no-use-generator", "use_generator", default=False,
+              help="Stream batches from a disk-backed packed cache "
+                   "(memory-bounded; same batches as the in-memory path).")
+@click.option("--max-files", default=None, type=int,
+              help="The maximum number of files to load. Defaults to all files.")
+def export_dataset(model_type, preprocessed_path, output_path, config_filepath,
+                   use_generator, max_files):
+    """Pack a preprocessed dataset into a single TFRecord for fast startup."""
+    from composer_tpu_torch.data import tfrecord
+
+    config = config_module.get(config_filepath or get_default_config())
+    dataset = get_dataset(
+        model_type, preprocessed_path, config,
+        shuffle_dataset=False, max_files=max_files, use_generator=use_generator,
+    )
+    logging.info("Writing dataset to TFRecord. This may take a while...")
+    tfrecord.export_dataset(dataset, model_type.value, output_path)
+    logging.info("Finished exporting '%s' as a TFRecord: '%s'", preprocessed_path, output_path)
+
+
+def summary_rows(model, depth: int = 2) -> list:
+    """``(path, type, parameters, count)`` for each module of ``model`` down
+    to ``depth`` levels, and for each parameter held directly by a module
+    above that depth (the Transformer's ``wte`` and ``wpe``); ``parameters``
+    names the module's own tensors with their shapes, ``count`` is every
+    parameter under it."""
+    rows = []
+
+    def visit(module, prefix: str, level: int) -> None:
+        for name, tensor in module.named_parameters(recurse=False):
+            if module is model:  # a top-level tensor is a row of its own
+                rows.append((name, "Parameter", str(tuple(tensor.shape)), tensor.numel()))
+        if level == depth:
+            return
+        for name, child in module.named_children():
+            own = ", ".join(f"{key} {tuple(tensor.shape)}"
+                            for key, tensor in child.named_parameters(recurse=False))
+            rows.append((prefix + name, type(child).__name__, own,
+                         sum(tensor.numel() for tensor in child.parameters())))
+            visit(child, f"{prefix}{name}.", level + 1)
+
+    visit(model, "", 0)
+    return rows
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.option("-c", "--config", "config_filepath", default=None,
+              help="The path to the model configuration file. If unspecified, uses the default config.")
+def summary(model_type, config_filepath):
+    """Show the model's layer/parameter breakdown for a given config."""
+    config = config_module.get(config_filepath or get_default_config())
+    model, vocab_size = create_model(model_type, config, device=get_device())
+    rows = [("module", "type", "parameters", "count")] + [
+        (path, kind, own, f"{count:,}") for path, kind, own, count in summary_rows(model)]
+    widths = [max(len(row[column]) for row in rows) for column in range(4)]
+    title = (f"{type(model).__name__} summary (batch {get_batch_size(model_type, config)}, "
+             f"window {get_window_size(model_type, config)}, depth 2)")
+    print(title)
+    for index, row in enumerate(rows):
+        print("  ".join(cell.ljust(width) if column < 3 else cell.rjust(width)
+                        for column, (cell, width) in enumerate(zip(row, widths))).rstrip())
+        if index == 0:
+            print("  ".join("-" * width for width in widths))
+    total = sum(tensor.numel() for tensor in model.parameters())
+    size = sum(tensor.numel() * tensor.element_size() for tensor in model.parameters())
+    buffers = sum(tensor.numel() for tensor in model.buffers())
+    print(f"Total parameters: {total:,} ({size / 1e6:.1f} MB)"
+          + (f"; buffers (batch statistics): {buffers:,}" if buffers else ""))
+    print(f"Event vocabulary size: {vocab_size}")
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("dataset-path")
+@click.option("-c", "--config", "config_filepath", default=None,
+              help="The path to the model configuration file. If unspecified, uses the default config.")
+@click.option("--steps", default=5, help="The number of steps to visualize. Defaults to 5.")
+@click.option("--decode-events/--no-decode-events", default=True,
+              help="Whether events are decoded or displayed as raw integer ids.")
+def visualize_training(model_type, dataset_path, config_filepath, steps, decode_events):
+    """Displays the (input, expected output) training pairs from a dataset."""
+    config = config_module.get(config_filepath or get_default_config())
+    dataset = get_dataset(
+        model_type, dataset_path, config, mode="train",
+        max_files=5, show_progress_bar=False,
+    )
+    vocab = vocabulary_from_config(config)
+
+    pairs = []
+    for batch_x, batch_y in dataset:
+        features = np.asarray(batch_x).reshape(-1)
+        labels = np.asarray(batch_y).reshape(-1)
+        for x, y in zip(features, labels):
+            if len(pairs) == steps:
+                break
+            if decode_events:
+                pairs.append((vocab.id_to_event(int(x)), vocab.id_to_event(int(y))))
+            else:
+                pairs.append((int(x), int(y)))
+        if len(pairs) == steps:
+            break
+
+    input_line = ", ".join(str(x) for x, _ in pairs)
+    output_line = ", ".join(str(y) for _, y in pairs)
+    width = max(len("Input sequence: ") + len(input_line),
+                len("Output sequence: ") + len(output_line))
+    print("‾" * width)
+    print(f"Input sequence: {input_line}")
+    print("_" * width)
+    print("‾" * width)
+    print(f"Output sequence: {output_line}")
+    print("_" * width)
+    for index, (x, y) in enumerate(pairs):
+        print(f"Step {index + 1}")
+        print(f" - input:             {x}")
+        print(f" - expected output:   {y}")
 
 
 def get_config_from_restoredir(restoredir):
@@ -632,6 +785,168 @@ def serve(model_type, restoredir, host, port, max_batch_size, max_wait_ms,
         server.server_close()
         service.close()
         logging.info("Kernel launches: %s", json.dumps(launch_counts()))
+
+
+@cli.command()
+@click.argument("midi_filepath")
+@click.option("--sf-path", "soundfont_filepath", default=None,
+              help="The filepath of the soundfont to use. If not specified, uses the default soundfont.")
+@click.option("--sf-save-path", "soundfont_save_path", default="data/soundfonts",
+              help="The path to save the default soundfont to.")
+@click.option("--chunk-size", default=32768, help="Bytes per download chunk. Defaults to 32768.")
+@click.option("--renderer", default="auto",
+              type=click.Choice(["auto", "fluidsynth", "builtin"]),
+              help="'fluidsynth' uses a soundfont (the reference's path); "
+                   "'builtin' is the dependency-free additive renderer "
+                   "(composer_tpu_torch/midi/synth.py); 'auto' (default) prefers "
+                   "fluidsynth and falls back to builtin when it is "
+                   "missing.")
+def synthesize(midi_filepath, soundfont_filepath, soundfont_save_path,
+               chunk_size, renderer):
+    """Synthesize a MIDI file to WAV (fluidsynth or the built-in renderer)."""
+    midi_filepath = Path(midi_filepath)
+    output_filepath = midi_filepath.parent / (midi_filepath.stem + ".wav")
+
+    have_fluidsynth = which("fluidsynth") is not None
+    if renderer == "fluidsynth" and not have_fluidsynth:
+        logging.error(
+            "Could not find FluidSynth, which is required for synthesization "
+            "using a soundfont (use --renderer builtin for the offline "
+            "fallback)."
+        )
+        raise click.exceptions.Exit(1)
+
+    if renderer == "builtin" or (renderer == "auto" and not have_fluidsynth):
+        from composer_tpu_torch.midi.synth import render_midi_to_wav
+
+        if renderer == "auto":
+            logging.info(
+                "FluidSynth not found; rendering with the built-in additive "
+                "synthesizer instead."
+            )
+        render_midi_to_wav(midi_filepath, output_filepath)
+        logging.info("Wrote '%s' (built-in renderer).", output_filepath)
+        return
+
+    if soundfont_filepath is None:
+        soundfont_filepath = _ensure_default_soundfont(Path(soundfont_save_path), chunk_size)
+
+    subprocess.call([
+        "fluidsynth", "-T", "wav",
+        "-F", str(output_filepath),
+        "-ni", str(soundfont_filepath), str(midi_filepath),
+    ])
+
+
+def _ensure_default_soundfont(save_path: Path, chunk_size: int) -> Path:
+    """Downloads the default soundfont if missing (cli.py:698-731)."""
+    DEFAULT_SOUNDFONT_GDRIVE_ID = "1md7ysI8JeLb6idc5ZX05_iOUTvgm_l-0"
+    GDRIVE_DOWNLOAD_URL = "https://drive.google.com/uc?export=download"
+
+    save_path.mkdir(parents=True, exist_ok=True)
+    soundfont = save_path / "default.sf2"
+    if soundfont.exists():
+        return soundfont
+
+    try:
+        import requests
+    except ImportError:
+        logging.error("The 'requests' package is required to download the default soundfont.")
+        raise click.exceptions.Exit(1)
+
+    logging.info("Downloading default soundfont...")
+    session = requests.Session()
+    response = session.get(
+        GDRIVE_DOWNLOAD_URL, params={"id": DEFAULT_SOUNDFONT_GDRIVE_ID}, stream=True
+    )
+    token = next(
+        (v for k, v in response.cookies.items() if k.startswith("download_warning")), None
+    )
+    if token:
+        response = session.get(
+            GDRIVE_DOWNLOAD_URL,
+            params={"id": DEFAULT_SOUNDFONT_GDRIVE_ID, "confirm": token},
+            stream=True,
+        )
+    with open(soundfont, "wb+") as handle:
+        for chunk in response.iter_content(chunk_size=chunk_size):
+            if chunk:
+                handle.write(chunk)
+    return soundfont
+
+
+@cli.command()
+@click.argument("model-type", type=EnumType(ModelType, False))
+@click.argument("output-dir")
+@click.option("-c", "--config", "config_filepath", default=None,
+              help="The path to the model configuration file.")
+@click.option("--steps", default=5, help="Training steps to trace. Defaults to 5.")
+@click.option("--decode-length", default=128,
+              help="Events to decode inside the trace. Defaults to 128.")
+def profile(model_type, output_dir, config_filepath, steps, decode_length):
+    """Capture a torch.profiler trace of train steps and a decode.
+
+    Runs the model from the config on synthetic batches drawn from --seed (no
+    dataset needed) and writes a Chrome trace, OUTPUT_DIR/trace.json (open it
+    in Perfetto or chrome://tracing). One untraced train step and decode run
+    first, so the capture shows steady-state steps; the decode runs on the
+    weights those steps trained, inside a "decode" span. On the card the
+    trace holds the hand-written kernels' launches by name (the flash pair
+    with ``use_pallas_attention``, the fused decode kernel). See also
+    ``train --profile-dir`` for tracing a real training run.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, record_function
+
+    from composer_tpu_torch.train.generate import generate_ids
+
+    config = config_module.get(config_filepath or get_default_config())
+    trainer = _make_trainer(model_type, config)
+    batch = get_batch_size(model_type, config)
+    window = get_window_size(model_type, config)
+    state = trainer.init_state(batch, window)
+    carry = trainer.init_rnn_carry(batch)
+
+    rng = np.random.default_rng(get_seed())
+    vocab_size = trainer.model.config.vocab_size
+    x = rng.integers(0, vocab_size, (batch, window)).astype(np.int32)
+    y = rng.integers(0, vocab_size, (batch, window)).astype(np.int32)
+    prompt = rng.integers(0, vocab_size, (1, 8)).astype(np.int32)
+    generator = trainer.make_dropout_generator()
+
+    def train_step(carry):
+        metrics = trainer.train_step(state, x, y, generator, carry)
+        return metrics, metrics.get("carry")
+
+    def decode():
+        # None: the module's own weights, so the decode sees what the steps
+        # before it trained.
+        return generate_ids(trainer.model, model_type, None, prompt,
+                            length=decode_length, temperature=1.0, seed=get_seed())
+
+    # Warm up outside the trace (allocations, the kernels' load); the loss's
+    # host fetch waits for the step.
+    metrics, carry = train_step(carry)
+    float(metrics["loss"])
+    decode()
+
+    activities = [ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as profiler:
+        for index in range(steps):
+            with record_function(f"train_step {index + 1}"):
+                metrics, carry = train_step(carry)
+        float(metrics["loss"])
+        with record_function("decode"):
+            decode()
+    profiler.export_chrome_trace(str(output_dir / "trace.json"))
+    logging.info(
+        "Wrote a profiler trace of %d train steps + a %d-event decode to '%s'.",
+        steps, decode_length, output_dir / "trace.json",
+    )
 
 
 def main():

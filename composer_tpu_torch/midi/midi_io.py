@@ -14,8 +14,10 @@ Semantics of the original (its reference delegated MIDI I/O to
 
 ``read_note_sequence``/``write_note_sequence`` bridge to
 :class:`composer_tpu_torch.midi.events.NoteSequence` with millisecond
-timing. Reading always takes the pure-Python parser (``_parse_arrays``);
-``tests/test_torch_codec.py`` holds the copy to the original.
+timing. Reading takes the native parser where it is built (``_parse_arrays``,
+``composer_tpu_torch.native``) and the pure-Python one otherwise;
+``tests/test_torch_codec.py`` and ``tests/test_torch_native.py`` hold the copy
+to the original.
 """
 
 from __future__ import annotations
@@ -345,14 +347,21 @@ def _parsed_arrays_from_midifile(midi: MidiFile) -> dict:
 
 
 def _parse_arrays(filepath) -> dict:
-    """Parses a MIDI file into flat arrays with ``parse_midi``.
+    """Parses a MIDI file into flat arrays, preferring the native parser.
 
-    The JAX package prefers its native C++ parser (native/fastcodec.cpp
-    composer_midi_parse), which mirrors ``parse_midi`` exactly and falls back
-    to it on malformed input; the port has no native parser yet (ROADMAP.md,
-    Queue 1 item 5), so the Python parser always runs, with its exceptions.
+    The C++ parser (native/fastcodec.cpp composer_midi_parse) mirrors
+    ``parse_midi`` exactly; malformed input makes it return None and the
+    Python parser runs instead, raising the usual exceptions. Without the
+    native library (no compiler) the Python parser always runs.
     """
-    return _parsed_arrays_from_midifile(parse_midi(Path(filepath).read_bytes()))
+    from composer_tpu_torch import native
+
+    data = Path(filepath).read_bytes()
+    if native.available():
+        parsed = native.parse_midi_arrays(data)
+        if parsed is not None:
+            return parsed
+    return _parsed_arrays_from_midifile(parse_midi(data))
 
 
 def read_note_arrays(filepath, programs=None, ignore_drums: bool = True):

@@ -15,9 +15,9 @@ Format parity with the reference so existing datasets remain loadable:
 The bulk loaders are vectorized with NumPy (single ``frombuffer`` + arithmetic)
 instead of the reference's per-event ``struct.unpack`` loop — this is the
 tokenizer-throughput hot path (reference hot loop: sequence.py:1686-1692).
-The original first tries its native C++ decoder (``composer_tpu.native``); the
-port has no native codec yet (ROADMAP.md, Queue 1 item 5), so ids are always
-decoded by the numpy path, ``Vocabulary.encode_pairs``.
+Ids are decoded by the native C++ decoder (``composer_tpu_torch.native``,
+built at first use) where it is available, else by the numpy path,
+``Vocabulary.encode_pairs``; both give the same ids.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
+from composer_tpu_torch import native
 from composer_tpu_torch.exceptions import EncodingError
 from composer_tpu_torch.midi.events import Event, EventSequence, EventType
 from composer_tpu_torch.midi.vocab import Vocabulary, get_vocabulary
@@ -38,7 +39,15 @@ ONE_HOT_ENCODING_TYPE_ID = 9223372036854775806
 _TYPE_ID_STRUCT = struct.Struct("<Q")
 _INT_HEADER_STRUCT = struct.Struct("<hhh")
 
+
 def _pairs_to_ids(pairs: np.ndarray, vocab: Vocabulary) -> np.ndarray:
+    if native.available():
+        try:
+            return native.decode_event_ids(
+                pairs, vocab.velocity_bins, vocab.max_time_steps
+            ).astype(np.int64)
+        except ValueError as error:
+            raise EncodingError(str(error)) from error
     return vocab.encode_pairs(pairs[:, 0], pairs[:, 1])
 
 
