@@ -4330,10 +4330,306 @@ def rnn_path(device, card: str, yaml_config) -> dict:
     return {"step_ms": mean_step * 1e3, "decode_s": decode_s, "loss": scores["loss"]}
 
 
+MESH_F32_STEPS, MESH_BF16_STEPS = 3, 5  # phase 13: steps on each mesh
+MESH_F32_LOSS_RTOL = 1e-4  # f32 losses, mesh against one process: other summation orders
+MESH_BF16_LOSS_RTOL = 2e-2  # bf16 losses: the bf16 rule
+MESH_JOIN_S = 300  # the bound on the ranks' run; the phase itself aims at under 60 s
+MESH_SERVE_LENGTH = 30  # events a phase-13 request asks for
+# Its 4 prompts' lengths: ragged, in one power-of-two bucket (one batch).
+MESH_SERVE_PLENS = (10, 9, 12, 14)
+
+
+def mesh_config():
+    """Phase 13's model: the default config (vocab 390, embed 256, 8 layers
+    x 16 heads, window 1024) with relative attention, the flash kernels and
+    dropout 0."""
+    from composer_tpu_torch.config import get_default
+
+    config = get_default()
+    section = config.transformer.model
+    section.use_pallas_attention = True
+    section.use_relative_attention = True
+    section.attention_dropout_rate = 0.0
+    section.residual_dropout_rate = 0.0
+    return config
+
+
+def mesh_model(config, dtype, stddev=None):
+    """The full model on the CPU (a mesh Trainer or service keeps its slice
+    on the card)."""
+    from composer_tpu_torch.models import ModelType, create_model
+
+    if stddev is not None:
+        config = mesh_config()
+        config.transformer.model.initializer_stddev = stddev
+    return create_model(ModelType.TRANSFORMER, config, device="cpu", dtype=dtype)[0]
+
+
+def mesh_steps(trainer, state, batches, timed_from=None) -> tuple:
+    """``train_step`` over ``batches``: the (global) losses and each step's
+    host time after a synchronize. From step ``timed_from`` on, the mesh's
+    collectives are timed too (the device synchronised around each)."""
+    from composer_tpu_torch.parallel import mesh as mesh_lib
+
+    generator = trainer.make_dropout_generator()
+    losses, seconds = [], []
+    for index, (x, y) in enumerate(batches):
+        if timed_from is not None and index == timed_from:
+            mesh_lib.COLLECTIVE_TIME.update(timed=True, calls=0, seconds=0.0)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = trainer.train_step(state, x, y, generator)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        losses.append(float(metrics["loss"]))
+    mesh_lib.COLLECTIVE_TIME["timed"] = False
+    return losses, seconds
+
+
+def mesh_requests(config) -> list:
+    prompt = encoded_prompt(config, max(MESH_SERVE_PLENS) + 3)
+    return [prompt[index:index + length] for index, length in enumerate(MESH_SERVE_PLENS)]
+
+
+def mesh_rank_main(rank: int, work: Path) -> int:
+    """One of phase 13's two ranks (``--mesh-rank R DIR``), on ``cuda:0``
+    beside the other; writes its results to ``DIR/rank<R>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from composer_tpu_torch.data import WindowDataset
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from composer_tpu_torch.parallel import create_mesh, initialize_multihost
+    from composer_tpu_torch.parallel import mesh as mesh_lib
+    from composer_tpu_torch.serving import GenerationService
+    from composer_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    initialize_multihost(f"file://{work}/store", 2, rank, backend="gloo",
+                         timeout=datetime.timedelta(seconds=120))
+    try:
+        config = mesh_config()
+        stream = np.load(work / "stream.npy")
+        batches = list(WindowDataset(stream, TRAIN_BATCH, TRAIN_WINDOW, shuffle=False))
+        tp, dp = create_mesh(1, 2, device=device), create_mesh(2, 1, device=device)
+        out = {}
+
+        # (a) tensor parallel: 3 float32 steps through Trainer.train, then 5 bf16.
+        reset_launch_counts()
+        trainer = Trainer(mesh_model(config, torch.float32), ModelType.TRANSFORMER, 1e-3,
+                          mesh=tp, seed=0)
+        state = trainer.init_state(TRAIN_BATCH, TRAIN_WINDOW)
+        losses = []
+        step = trainer.train_step
+
+        def recorded(*args, **kwargs):
+            metrics = step(*args, **kwargs)
+            losses.append(float(metrics["loss"]))
+            return metrics
+
+        trainer.train_step = recorded
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state = trainer.train(WindowDataset(stream[:MESH_F32_STEPS * TRAIN_BATCH
+                                                   * (TRAIN_WINDOW + 1)],
+                                            TRAIN_BATCH, TRAIN_WINDOW, shuffle=False),
+                              state, work / "tp", epochs=1, show_progress_bar=False)
+        torch.cuda.synchronize()
+        out["tp_f32_s"] = time.perf_counter() - start
+        del trainer.train_step
+        out["tp_f32_losses"] = losses
+        out["tp_launches"] = flash_counts(("tf32x3", 16))
+        out["tp_heads"] = trainer.model.blocks[0].attn.heads
+        gathered = trainer.checkpoint_state(state)["params"]
+        if rank == 0:
+            torch.save({name: t.cpu() for name, t in gathered.items()}, work / "tp_gathered.pt")
+        trainer = Trainer(mesh_model(config, torch.bfloat16), ModelType.TRANSFORMER, 1e-3,
+                          mesh=tp, seed=0)
+        state = trainer.init_state(TRAIN_BATCH, TRAIN_WINDOW)
+        out["tp_bf16_losses"], out["tp_bf16_seconds"] = mesh_steps(
+            trainer, state, batches[:MESH_BF16_STEPS], timed_from=1)
+        out["tp_bf16_collective"] = dict(mesh_lib.COLLECTIVE_TIME)
+
+        # (b) data parallel: 3 float32 steps at 4 rows a rank.
+        trainer = Trainer(mesh_model(config, torch.float32), ModelType.TRANSFORMER, 1e-3,
+                          mesh=dp, seed=0)
+        state = trainer.init_state(TRAIN_BATCH, TRAIN_WINDOW)
+        out["dp_f32_losses"], out["dp_f32_seconds"] = mesh_steps(
+            trainer, state, batches[:MESH_F32_STEPS], timed_from=1)
+        out["dp_f32_collective"] = dict(mesh_lib.COLLECTIVE_TIME)
+        del trainer, state
+
+        # (d) serving: GenerationService on the (1, 2) mesh, 4 greedy requests.
+        model = mesh_model(config, torch.float32, stddev=0.2)
+        model.reset_parameters(torch.Generator().manual_seed(1))
+        service = GenerationService(model, ModelType.TRANSFORMER, None, 390, max_batch_size=4,
+                                    max_wait_ms=2000.0, mesh=tp)
+        if service.is_leader:
+            responses = [None] * len(MESH_SERVE_PLENS)
+
+            def ask(index, prompt):
+                responses[index] = service.submit(prompt, length=MESH_SERVE_LENGTH,
+                                                  temperature=0.0)
+
+            threads = [threading.Thread(target=ask, args=(i, p))
+                       for i, p in enumerate(mesh_requests(config))]
+            start = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(MESH_JOIN_S)
+            out["serve_s"] = time.perf_counter() - start
+            service.close()
+            out["responses"] = responses
+            out["serve_batches"] = service.batch_sizes
+        else:
+            service.wait_closed(MESH_JOIN_S)
+        out["launches"] = launch_counts()
+        torch.save(out, work / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_path(device, card: str) -> dict:
+    """Phase 13: the mesh on the one card. Two gloo ranks, each a process,
+    both on ``cuda:0`` (NCCL puts no two ranks on one card; gloo's
+    ``all_reduce`` and ``broadcast`` take CUDA tensors through the host),
+    at the default model's full width (``mesh_config``) on 8 x 1024
+    codec-encoded ids: (a) tensor parallel on (1, 2), 3 float32 steps (TF32
+    off) through ``Trainer.train`` against one process's ``Trainer`` on the
+    same weights and batches, each rank launching the flash pair 8 x 3 times
+    at 8 heads, then 5 bf16 steps timed with the collectives' share; (b)
+    data parallel on (2, 1), 3 float32 steps at 4 rows a rank against the
+    same run; (c) (a)'s checkpoint restored in one process equals the
+    gathered mesh parameters exactly; (d) ``GenerationService`` on (1, 2),
+    4 greedy float32 requests, equal to one process's ``generate_ids(
+    engine="xla")`` on the same batch. Returns each rank's launch counts."""
+    from composer_tpu_torch.data import WindowDataset
+    from composer_tpu_torch.models import ModelType
+    from composer_tpu_torch.serving import _pow2_ceil
+    from composer_tpu_torch.train.generate import generate_ids
+    from composer_tpu_torch.train.trainer import Trainer
+
+    phase_start = time.perf_counter()
+    config = mesh_config()
+    events = MESH_BF16_STEPS * TRAIN_BATCH * (TRAIN_WINDOW + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        stream = training_corpus(config, events)[:events]
+        np.save(work / "stream.npy", stream)
+        ranks = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                                   str(rank), str(work)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+        try:
+            # One process, meanwhile: the same steps on the same batches.
+            batches = list(WindowDataset(stream, TRAIN_BATCH, TRAIN_WINDOW, shuffle=False))
+            reference = {}
+            for name, dtype, steps in (("f32", torch.float32, MESH_F32_STEPS),
+                                       ("bf16", torch.bfloat16, MESH_BF16_STEPS)):
+                trainer = Trainer(mesh_model(config, dtype), ModelType.TRANSFORMER, 1e-3,
+                                  seed=0, device=device)
+                state = trainer.init_state(TRAIN_BATCH, TRAIN_WINDOW)
+                reference[name] = mesh_steps(trainer, state, batches[:steps])
+            del trainer, state
+            logs = [rank.communicate(timeout=MESH_JOIN_S)[0] for rank in ranks]
+        finally:
+            for rank in ranks:
+                if rank.poll() is None:
+                    rank.kill()
+                    rank.wait()
+        for index, (rank, log) in enumerate(zip(ranks, logs)):
+            if rank.returncode != 0:
+                raise AssertionError(f"mesh rank {index} failed (exit code "
+                                     f"{rank.returncode}):\n{log[-6000:]}")
+        results = [torch.load(work / f"rank{index}.pt", weights_only=False) for index in range(2)]
+
+        # (c) the checkpoint in one process against the gathered parameters.
+        single = Trainer(mesh_model(config, torch.float32), ModelType.TRANSFORMER, 1e-3,
+                         device=device).restore(work / "tp", TRAIN_BATCH, TRAIN_WINDOW)
+        gathered = torch.load(work / "tp_gathered.pt", weights_only=True)
+        restored = single.model.state_dict()
+        exact = all(torch.equal(restored[name].cpu(), t) for name, t in gathered.items())
+        exact &= set(gathered) == set(restored)
+        del single
+
+    # (d) one process on the batch the service ran: the prompts padded to
+    # their power-of-two width, decoded to the length's power of two.
+    model = mesh_model(config, torch.float32, stddev=0.2)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    model.to(device)
+    prompts = mesh_requests(config)
+    width = _pow2_ceil(max(MESH_SERVE_PLENS))
+    padded = np.zeros((len(prompts), width), np.int32)
+    for row, prompt in enumerate(prompts):
+        padded[row, :len(prompt)] = prompt
+    ids = generate_ids(model, ModelType.TRANSFORMER, None, padded,
+                       length=_pow2_ceil(MESH_SERVE_LENGTH), temperature=0.0,
+                       prompt_lengths=np.asarray(MESH_SERVE_PLENS, np.int32), engine="xla")
+    want = [np.concatenate([p, ids[row, width:width + MESH_SERVE_LENGTH]])
+            for row, p in enumerate(prompts)]
+    leader = results[0]
+    served_equal = all(np.array_equal(got, w) for got, w in zip(leader["responses"], want))
+    del model
+
+    f32_ref, f32_seconds = reference["f32"]
+    bf16_ref, bf16_seconds = reference["bf16"]
+
+    def rel(got, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+
+    tp_f32, dp_f32 = rel(leader["tp_f32_losses"], f32_ref), rel(leader["dp_f32_losses"], f32_ref)
+    tp_bf16 = rel(leader["tp_bf16_losses"], bf16_ref)
+    bf16_step = float(np.mean(leader["tp_bf16_seconds"][1:]))
+    bf16_share = leader["tp_bf16_collective"]["seconds"] / sum(leader["tp_bf16_seconds"][1:])
+    dp_step = float(np.mean(leader["dp_f32_seconds"][1:]))
+    dp_share = leader["dp_f32_collective"]["seconds"] / sum(leader["dp_f32_seconds"][1:])
+    print(f"mesh (a) TP (1, 2) f32 losses {leader['tp_f32_losses']} against one process "
+          f"{f32_ref}: worst {tp_f32:.2e} relative; flash launches a rank (fwd, bwd) "
+          f"{[r['tp_launches'] for r in results]} at {leader['tp_heads']} heads; 3 steps "
+          f"through Trainer.train {leader['tp_f32_s']:.2f} s", flush=True)
+    print(f"mesh (a) TP (1, 2) bf16 losses {leader['tp_bf16_losses']} against one process "
+          f"{bf16_ref}: worst {tp_bf16:.2e}; step {bf16_step * 1e3:.1f} ms (steps 2-"
+          f"{MESH_BF16_STEPS}; one process {np.mean(bf16_seconds[1:]) * 1e3:.1f} ms), "
+          f"collectives {leader['tp_bf16_collective']['calls']} calls, "
+          f"{bf16_share * 100:.1f}% of the steps (two gloo ranks sharing one card, device "
+          f"synchronised around each collective) [{card}]", flush=True)
+    print(f"mesh (b) DP (2, 1) f32 losses {leader['dp_f32_losses']}: worst {dp_f32:.2e}; step "
+          f"{dp_step * 1e3:.1f} ms (one process {np.mean(f32_seconds[1:]) * 1e3:.1f} ms), "
+          f"collectives {dp_share * 100:.1f}% of the steps [{card}]", flush=True)
+    print(f"mesh (c) checkpoint restored in one process equals the gathered parameters: "
+          f"{exact}; (d) GenerationService on (1, 2): batches {leader['serve_batches']}, "
+          f"4 greedy f32 responses equal to one process's generate_ids(engine='xla'): "
+          f"{served_equal} in {leader['serve_s']:.2f} s", flush=True)
+    elapsed = time.perf_counter() - phase_start
+    print(f"phase 13 took {elapsed:.1f} s (host clock)", flush=True)
+    expected = (MESH_F32_STEPS * 8,) * 2
+    if any(r["tp_launches"] != expected for r in results) or leader["tp_heads"] != 8:
+        raise AssertionError(f"mesh flash launches {[r['tp_launches'] for r in results]} at "
+                             f"{leader['tp_heads']} heads, wanted {expected} at 8")
+    if tp_f32 > MESH_F32_LOSS_RTOL or dp_f32 > MESH_F32_LOSS_RTOL:
+        raise AssertionError(f"mesh f32 losses off by {tp_f32} (TP) and {dp_f32} (DP)")
+    if tp_bf16 > MESH_BF16_LOSS_RTOL:
+        raise AssertionError(f"mesh bf16 losses off by {tp_bf16}")
+    if not exact:
+        raise AssertionError("the mesh checkpoint does not restore to the gathered parameters")
+    if leader["serve_batches"] != [len(MESH_SERVE_PLENS)] or not served_equal:
+        raise AssertionError(f"mesh serving: batches {leader['serve_batches']}, equal "
+                             f"{served_equal}")
+    return {"launches": [r["launches"] for r in results], "seconds": elapsed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 4:
+        return mesh_rank_main(int(sys.argv[2]), Path(sys.argv[3]))
     from concurrent.futures import ThreadPoolExecutor
 
     from composer_tpu_torch.config import get_default
@@ -4435,6 +4731,8 @@ def main() -> int:
     phase_done("phases 6-11")
     rnn_path(device, card, get_default())
     phase_done("phase 12")
+    mesh = mesh_path(device, card)
+    phase_done("phase 13")
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -4514,6 +4812,16 @@ def main() -> int:
         "bound_ms": wide_segment["bound_ms"], "bound_by": wide_segment["bound_by"],
         "library_ms": None, "cluster": None, "parent_ms": wide_segment["parent_ms"],
         "http_launches": http["segment_wide"], "cli_launches": cli["segment_wide"]})
+    # Each kernel's launches on each of phase 13's two ranks.
+    counter = {"decode_generate (B>1)": "batched", "decode_generate (B=1)": "single",
+               "spec_decode (B=1)": "spec", "decode_segment": "segment",
+               "decode_wide": "wide", "decode_segment_wide": "segment_wide"}
+    for entry in kernels:
+        key = counter.get(entry["name"])
+        if key is None:
+            name = entry["name"].replace("_attention", "")
+            key = f"{name} {entry['variant']} {entry['head_dim']}"
+        entry["mesh_launches"] = [launches[key] for launches in mesh["launches"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

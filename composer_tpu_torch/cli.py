@@ -19,8 +19,14 @@ What differs from the JAX CLI:
 * checkpoints are the port's (``<logdir>/checkpoints/<step>/state.pt``);
   ``scripts/convert_checkpoint.py`` converts one of either package into the
   other's, so that ``--restoredir`` works across the two;
-* one device: ``--model-parallel`` above 1, and ``--data-parallel`` with more
-  than one visible card, stop with an error (ROADMAP.md, Queue 1 item 8);
+* ``train --data-parallel/--model-parallel`` and ``serve --model-parallel``
+  run a mesh of ``torch.distributed`` ranks, each a process: this process
+  is rank 0 and starts the others (``parallel/launch.py``), one per
+  visible card (``--device cpu``: the data degree is 1, so
+  ``--model-parallel 2 --no-data-parallel`` gives two CPU ranks). Only rank
+  0 logs, writes ``config.yml`` and checkpoints, and serves HTTP. A
+  ``--model-parallel`` that does not divide the attention heads is a usage
+  error (the JAX package's attention falls back to its band path there);
 * ``--profile-dir`` and ``profile`` write a ``torch.profiler`` Chrome trace;
 * ``summary`` prints a table of the PyTorch modules (Flax's ``tabulate`` has
   no counterpart) with the JAX model's parameter counts;
@@ -416,7 +422,7 @@ _CONFIG_SNAPSHOT_BANNER = """\
 """
 
 
-def _make_trainer(model_type, config):
+def _make_trainer(model_type, config, mesh=None):
     from composer_tpu_torch.train.trainer import Trainer
 
     device = get_device()
@@ -435,25 +441,74 @@ def _make_trainer(model_type, config):
         # Optional additive knobs (0 = the reference's bare Adam).
         warmup_steps=int(train_section.get("warmup_steps", 0)),
         gradient_clip_norm=float(train_section.get("gradient_clip_norm", 0.0)),
-        device=device,
+        device=device, mesh=mesh,
     )
 
 
-def _refuse_parallelism(model_parallel: int, data_parallel: bool) -> None:
-    """One device: tensor parallelism, and data parallelism over several
-    cards, are not ported (ROADMAP.md, Queue 1 item 8)."""
+def _mesh_degrees(model_type, config, model_parallel: int, data_parallel: bool):
+    """``(data, model)`` of the mesh a command runs on, or None for one
+    device: as the JAX CLI lays out its devices, with one rank per visible
+    card (``--device cpu``: the data degree is 1). Usage errors for a
+    ``--model-parallel`` that does not divide the cards or a Transformer's
+    attention heads."""
     import torch
 
-    if model_parallel > 1:
-        raise click.BadParameter(
-            f"--model-parallel {model_parallel}: tensor parallelism is not ported yet "
-            "(ROADMAP.md, Queue 1 item 8).", param_hint="--model-parallel")
-    if data_parallel and _DEVICE == "cuda" and torch.cuda.device_count() > 1:
-        raise click.UsageError(
-            f"{torch.cuda.device_count()} CUDA devices are visible, and data parallelism "
-            "over several devices is not ported yet (ROADMAP.md, Queue 1 item 8). Pass "
-            "--no-data-parallel to train on one device."
-        )
+    if model_parallel < 1:
+        raise click.BadParameter(f"--model-parallel {model_parallel} is below 1.",
+                                 param_hint="--model-parallel")
+    data = 1
+    if _DEVICE == "cuda":
+        available = torch.cuda.device_count()
+        if available % model_parallel:
+            raise click.BadParameter(
+                f"--model-parallel {model_parallel} does not divide the {available} "
+                "available devices.", param_hint="--model-parallel")
+        if data_parallel:
+            data = available // model_parallel
+    if model_type == ModelType.TRANSFORMER:
+        heads = int(config.transformer.model.attention_head_count)
+        if heads % model_parallel:
+            raise click.BadParameter(
+                f"--model-parallel {model_parallel} does not divide the {heads} attention "
+                "heads.", param_hint="--model-parallel")
+    if data * model_parallel == 1:
+        return None
+    return data, model_parallel
+
+
+def _rank_mesh(job: dict, rank: int):
+    """The mesh of a rank started for ``job``, with the CLI's globals set as
+    rank 0's are (seed, device, numpy's stream)."""
+    import torch
+
+    from composer_tpu_torch.parallel import create_mesh
+
+    global _GLOBAL_SEED, _DEVICE
+    _GLOBAL_SEED, _DEVICE = job["seed"], job["device"]
+    np.random.seed(job["seed"] & 0xFFFFFFFF)
+    device = torch.device("cpu")
+    if _DEVICE == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    data, model = job["degrees"]
+    return create_mesh(data, model, device=device)
+
+
+def _run_on_ranks(target, job: dict):
+    """``target(job, mesh)`` on one device, or on every rank of the job's mesh."""
+    from composer_tpu_torch.parallel import launch
+
+    job.update(seed=get_seed(), device=_DEVICE)
+    if job["degrees"] is None:
+        return target(job, None)
+    data, model = job["degrees"]
+    logging.info("Mesh: data=%d x model=%d over %d ranks.", data, model, data * model)
+    return launch.run_ranks(_rank_entry, data * model, (target, job))
+
+
+def _rank_entry(payload, rank: int, world: int):
+    target, job = payload
+    return target(job, _rank_mesh(job, rank))
 
 
 @cli.command()
@@ -478,12 +533,14 @@ def _refuse_parallelism(model_parallel: int, data_parallel: bool) -> None:
 @click.option("--show-progress-bar/--no-show-progress-bar", default=True,
               help="Whether to show an epoch progress bar. Defaults to True.")
 @click.option("--data-parallel/--no-data-parallel", default=True,
-              help="Shard batches over all visible devices (data parallelism). "
-                   "The port trains on one device: with more than one visible "
-                   "card, pass --no-data-parallel.")
+              help="Shard batches over all visible devices (data parallelism): "
+                   "one rank per card.")
 @click.option("--model-parallel", type=int, default=1,
-              help="Tensor-parallel degree. The port trains on one device: "
-                   "only 1 (the default) is accepted.")
+              help="Tensor-parallel degree: shards attention heads, MLP "
+                   "hidden units, and their optimizer state over a 'model' "
+                   "mesh axis of this size (the remaining cards form the "
+                   "data axis; on --device cpu this many CPU ranks). "
+                   "Defaults to 1 (pure data parallelism).")
 @click.option("--profile-dir", default=None, type=str,
               help="Capture a torch.profiler trace (a Chrome trace, trace.json) "
                    "of a few steps into this directory.")
@@ -492,7 +549,6 @@ def train(model_type, dataset_path, logdir, restoredir, config_filepath, epochs,
           max_checkpoints, show_progress_bar, data_parallel, model_parallel,
           profile_dir):
     """Run the training loop for the chosen model on a preprocessed dataset."""
-    _refuse_parallelism(model_parallel, data_parallel)
     get_device()  # fail before a log directory is made
 
     if restoredir is not None:
@@ -501,8 +557,10 @@ def train(model_type, dataset_path, logdir, restoredir, config_filepath, epochs,
     else:
         stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         model_logdir = Path(logdir) / f"{model_type.name.lower()}-{stamp}"
-        model_logdir.mkdir(parents=True, exist_ok=True)
         config = config_module.get(config_filepath or get_default_config())
+    degrees = _mesh_degrees(model_type, config, model_parallel, data_parallel)
+    if restoredir is None:
+        model_logdir.mkdir(parents=True, exist_ok=True)
         source = Path(config.filepath or get_default_config()).read_text()
         (model_logdir / "config.yml").write_text(
             _CONFIG_SNAPSHOT_BANNER.format(
@@ -510,24 +568,40 @@ def train(model_type, dataset_path, logdir, restoredir, config_filepath, epochs,
             )
         )
 
-    trainer = _make_trainer(model_type, config)
+    _run_on_ranks(_train_job, dict(
+        model_type=model_type, dataset_path=str(dataset_path), logdir=str(model_logdir),
+        restore=restoredir is not None, epochs=epochs, use_generator=use_generator,
+        max_files=max_files, save_frequency_mode=save_frequency_mode,
+        save_frequency=save_frequency, max_checkpoints=max_checkpoints,
+        show_progress_bar=show_progress_bar, profile_dir=profile_dir, degrees=degrees))
+
+
+def _train_job(job: dict, mesh) -> None:
+    """``train`` on one device (``mesh`` None) or on one rank of a mesh."""
+    model_type, model_logdir = job["model_type"], Path(job["logdir"])
+    config = get_config_from_restoredir(model_logdir)
+    trainer = _make_trainer(model_type, config, mesh=mesh)
     batch = get_batch_size(model_type, config)
     window = get_window_size(model_type, config)
 
-    if restoredir is not None:
+    if job["restore"]:
         state = trainer.restore(model_logdir, batch, window)
     else:
         state = trainer.init_state(batch, window)
 
+    # On one host every rank loads the whole dataset in one order and takes
+    # its data coordinate's rows of each batch (Trainer._place_batch).
     dataset = get_dataset(
-        model_type, dataset_path, config, "train",
-        max_files=max_files, use_generator=use_generator,
+        model_type, job["dataset_path"], config, "train",
+        max_files=job["max_files"], use_generator=job["use_generator"],
+        show_progress_bar=trainer.is_leader,
     )
     trainer.train(
-        dataset, state, model_logdir, epochs=epochs,
-        save_frequency_mode=save_frequency_mode, save_frequency=save_frequency,
-        max_checkpoints=max_checkpoints, show_progress_bar=show_progress_bar,
-        profile_dir=profile_dir,
+        dataset, state, model_logdir, epochs=job["epochs"],
+        save_frequency_mode=job["save_frequency_mode"],
+        save_frequency=job["save_frequency"], max_checkpoints=job["max_checkpoints"],
+        show_progress_bar=job["show_progress_bar"],
+        profile_dir=job["profile_dir"] if trainer.is_leader else None,
     )
 
 
@@ -722,8 +796,12 @@ def generate(model_type, restoredir, output_filepath, prompt, prompt_length,
                    "SM (models whose weights outgrow the card's L2, e.g. "
                    "embed 1024). 'auto' (default) picks by model size.")
 @click.option("--model-parallel", type=int, default=1,
-              help="Tensor-parallel degree. The port serves from one device: "
-                   "only 1 (the default) is accepted.")
+              help="Serve over a (data, model) mesh of ranks with this many "
+                   "model-axis (tensor-parallel) ranks; weights follow their "
+                   "logical annotations, batches shard over the data axis "
+                   "(the remaining cards; 1 on --device cpu), decode runs on "
+                   "the unfused path. Incompatible with --continuous (the "
+                   "segmented kernels are single-device).")
 def serve(model_type, restoredir, host, port, max_batch_size, max_wait_ms,
           default_length, continuous, seg_steps, serve_cache_len,
           max_queue_depth, default_deadline_ms, prefix_cache_mb,
@@ -737,6 +815,28 @@ def serve(model_type, restoredir, host, port, max_batch_size, max_wait_ms,
     return_midi. With --continuous, a slot scheduler over the segmented
     decode kernel admits/evicts requests at segment boundaries. On shutdown (Ctrl-C) it logs each kernel's launches.
     """
+    if model_parallel > 1 and continuous:
+        raise click.BadParameter(
+            "--model-parallel is incompatible with --continuous: the segmented "
+            "kernels are single-device. Use the run-to-completion server for mesh "
+            "serving.", param_hint="--model-parallel")
+    get_device()
+    config = get_config_from_restoredir(restoredir)
+    degrees = (_mesh_degrees(model_type, config, model_parallel, data_parallel=True)
+               if model_parallel > 1 else None)
+    _run_on_ranks(_serve_job, dict(
+        model_type=model_type, restoredir=str(restoredir), host=host, port=port,
+        max_batch_size=max_batch_size, max_wait_ms=max_wait_ms,
+        default_length=default_length, continuous=continuous, seg_steps=seg_steps,
+        serve_cache_len=serve_cache_len, max_queue_depth=max_queue_depth,
+        default_deadline_ms=default_deadline_ms, prefix_cache_mb=prefix_cache_mb,
+        continuous_engine=continuous_engine, degrees=degrees))
+
+
+def _serve_job(job: dict, mesh) -> None:
+    """``serve`` on one device (``mesh`` None) or on one rank of a mesh:
+    the leader serves HTTP, every other rank runs its share of each batch
+    until the leader closes the service."""
     from composer_tpu_torch.ops import launch_counts
     from composer_tpu_torch.serving import (
         ContinuousGenerationService,
@@ -744,38 +844,44 @@ def serve(model_type, restoredir, host, port, max_batch_size, max_wait_ms,
         build_server,
     )
 
-    _refuse_parallelism(model_parallel, data_parallel=False)
-    config = get_config_from_restoredir(restoredir)
+    model_type = job["model_type"]
+    config = get_config_from_restoredir(job["restoredir"])
     trainer = _make_trainer(model_type, config)
     trainer.restore(
-        restoredir, get_batch_size(model_type, config), get_window_size(model_type, config)
+        job["restoredir"], get_batch_size(model_type, config),
+        get_window_size(model_type, config)
     )
     vocab = vocabulary_from_config(config)
     # The services copy the restored module's state_dict: its weights and,
     # for MusicRNN, its BatchNorm running statistics.
-    if continuous:
+    if job["continuous"]:
         service = ContinuousGenerationService(
             trainer.model, model_type, None, vocab.size,
-            slots=max_batch_size, seg_steps=seg_steps,
-            cache_len=serve_cache_len, seed=get_seed(),
-            max_queue_depth=max_queue_depth,
-            default_deadline_ms=default_deadline_ms,
-            prefix_cache_mb=prefix_cache_mb,
-            engine=continuous_engine, device=trainer.device,
+            slots=job["max_batch_size"], seg_steps=job["seg_steps"],
+            cache_len=job["serve_cache_len"], seed=get_seed(),
+            max_queue_depth=job["max_queue_depth"],
+            default_deadline_ms=job["default_deadline_ms"],
+            prefix_cache_mb=job["prefix_cache_mb"],
+            engine=job["continuous_engine"], device=trainer.device,
         )
     else:
         service = GenerationService(
             trainer.model, model_type, None, vocab.size,
-            max_batch_size=max_batch_size, max_wait_ms=max_wait_ms,
-            seed=get_seed(), max_queue_depth=max_queue_depth,
-            default_deadline_ms=default_deadline_ms, device=trainer.device,
+            max_batch_size=job["max_batch_size"], max_wait_ms=job["max_wait_ms"],
+            seed=get_seed(), max_queue_depth=job["max_queue_depth"],
+            default_deadline_ms=job["default_deadline_ms"],
+            device=trainer.device if mesh is None else None, mesh=mesh,
         )
+    if mesh is not None and mesh.rank != mesh.leader:
+        service.wait_closed()
+        return
     server = build_server(
-        service, config, host=host, port=port, default_length=default_length,
+        service, config, host=job["host"], port=job["port"],
+        default_length=job["default_length"],
     )
     logging.info(
         "Serving %s on http://%s:%d (POST /v1/generate, GET /v1/health).",
-        model_type.value, host, server.server_port,
+        model_type.value, job["host"], server.server_port,
     )
     try:
         server.serve_forever()

@@ -28,6 +28,12 @@ What the JAX module does that torch's layers do another way:
   training forward (``deterministic=False``); ``deterministic=True``
   normalises with the running statistics.
 
+Under data parallelism (``Trainer(mesh=)``, which sets each BatchNorm's
+``mesh``) a training forward takes the statistics of the global batch: the
+sum and the sum of squares are summed over the data group, as GSPMD
+computes them for the JAX package's batch-sharded ``nn.BatchNorm``, so the
+running statistics agree on every rank.
+
 ``config.dtype`` is the compute dtype: parameters (``param_dtype``) are cast
 to it inside ``forward``, as Flax's ``dtype`` does, and the carries are
 held in it. Dropout draws from the ``torch.Generator`` passed to
@@ -44,6 +50,7 @@ import torch
 from torch import nn
 
 from composer_tpu_torch.models.transformer import _dropout
+from composer_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +117,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features, dtype=param_dtype))
         self.register_buffer("running_mean", torch.zeros(features, dtype=torch.float32))
         self.register_buffer("running_var", torch.ones(features, dtype=torch.float32))
+        # The data-parallel mesh whose global batch the statistics cover.
+        self.mesh = None
 
     def forward(self, x, use_running_average: bool):
         xf = x.float()
@@ -117,8 +126,14 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            if self.mesh is not None and self.mesh.data > 1:
+                count = xf[..., 0].numel() * self.mesh.data
+                sums = mesh_lib.sum_over_data(
+                    torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), self.mesh)
+                mean, square = sums[0] / count, sums[1] / count
+            else:
+                mean, square = xf.mean(axes), (xf * xf).mean(axes)
+            var = torch.clamp(square - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1 - self.momentum) * mean)

@@ -30,10 +30,23 @@ activations in the backward pass (``torch.utils.checkpoint``) instead of
 keeping them; the recompute draws the forward's dropout bits
 (``_checkpointed_block``), so loss and gradients do not change.
 
+Tensor parallelism: a config whose ``flash_mesh`` (the JAX field's name;
+a ``parallel/mesh.py`` mesh) has a model degree above 1 builds this rank's
+slice of each block, ``H / model`` heads and ``4E / model`` MLP units
+(``local_heads``; an indivisible count raises ``ValueError`` here, where
+the JAX package falls back to its band path). ``copy_to_model`` goes before
+``c_attn`` and ``c_fc``, ``reduce_from_model`` after the partial ``c_proj``
+products and before their (replicated) bias; the embeddings, the LayerNorms
+and the logits are replicated (``vocab`` and ``embed`` map to no mesh
+axis). ``reset_parameters`` draws the full single-device tensors and keeps
+this rank's slices (``shard_params``), so a seed gives the single-device
+weights.
+
 The KV cache is a dict ``{"index": int, "layers": [{"k", "v"}]}`` of
-``[B, H, S, D]`` buffers. Unlike the functional JAX module, ``forward``
-writes the new keys and values into those buffers in place (no copy of the
-cache per token) and returns the dict with the advanced index.
+``[B, H, S, D]`` buffers (this rank's heads under tensor parallelism).
+Unlike the functional JAX module, ``forward`` writes the new keys and values
+into those buffers in place (no copy of the cache per token) and returns the
+dict with the advanced index.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from composer_tpu_torch.ops import attention as attention_ops
+from composer_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,12 +102,25 @@ class TransformerConfig:
         return self.embed_dim // self.num_heads
 
 
+def _model_share(count: int, name: str, mesh) -> int:
+    model = mesh.model if mesh_lib.tensor_parallel(mesh) else 1
+    if count % model:
+        raise ValueError(f"{name} {count} not divisible by {mesh_lib.MODEL_AXIS}={model}")
+    return count // model
+
+
+def local_heads(config: TransformerConfig) -> int:
+    """The heads of this rank: ``num_heads`` over the mesh's model degree
+    (all of them without tensor parallelism)."""
+    return _model_share(config.num_heads, "heads", config.flash_mesh)
+
+
 def init_cache(config: TransformerConfig, batch_size: int, max_length: int,
                dtype=None, device=None):
-    """Preallocated KV cache: per layer ``[B, H, S, D]`` k/v buffers plus the
-    fill index."""
+    """Preallocated KV cache: per layer ``[B, H, S, D]`` k/v buffers (``H``
+    this rank's heads) plus the fill index."""
     dtype = dtype or config.dtype
-    shape = (batch_size, config.num_heads, max_length, config.head_dim)
+    shape = (batch_size, local_heads(config), max_length, config.head_dim)
     return {
         "index": 0,
         "layers": [
@@ -126,17 +153,20 @@ def _dropout(x: torch.Tensor, rate: float, deterministic: bool, generator) -> to
 
 
 class SelfAttention(nn.Module):
-    """Fused-QKV causal self-attention with optional relative bias."""
+    """Fused-QKV causal self-attention with optional relative bias (this
+    rank's heads under tensor parallelism)."""
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
         self.config = config
-        e = config.embed_dim
-        self.c_attn = nn.Linear(e, 3 * e, dtype=config.param_dtype)
-        self.c_proj = nn.Linear(e, e, dtype=config.param_dtype)
+        self.mesh = config.flash_mesh if mesh_lib.tensor_parallel(config.flash_mesh) else None
+        self.heads = local_heads(config)
+        e, width = config.embed_dim, self.heads * config.head_dim
+        self.c_attn = nn.Linear(e, 3 * width, dtype=config.param_dtype)
+        self.c_proj = nn.Linear(width, e, dtype=config.param_dtype)
         if config.use_relative_attention:
             self.rel_embedding = nn.Parameter(torch.empty(
-                config.num_heads, config.window_size, config.head_dim,
+                self.heads, config.window_size, config.head_dim,
                 dtype=config.param_dtype,
             ))
         else:
@@ -147,10 +177,12 @@ class SelfAttention(nn.Module):
         config = self.config
         dtype = config.dtype
         batch, seq, _ = x.shape
+        if self.mesh is not None:
+            x = mesh_lib.copy_to_model(x, self.mesh)
         q, k, v = _dense(self.c_attn, x, dtype).chunk(3, dim=-1)
 
         def heads(t):
-            return t.reshape(batch, seq, config.num_heads, config.head_dim).transpose(1, 2)
+            return t.reshape(batch, seq, self.heads, config.head_dim).transpose(1, 2)
 
         q, k, v = heads(q), heads(k), heads(v)
         rel = self.rel_embedding.to(dtype) if self.rel_embedding is not None else None
@@ -171,25 +203,38 @@ class SelfAttention(nn.Module):
             q, k, v, rel_embedding=rel, q_position=q_position,
             scale=config.scale_attention, dropout_generator=generator,
             dropout_rate=0.0 if deterministic else config.attention_dropout_rate,
-            use_pallas=config.use_pallas_attention,
+            use_pallas=config.use_pallas_attention, flash_mesh=config.flash_mesh,
         )
-        out = out.transpose(1, 2).reshape(batch, seq, config.embed_dim)
-        out = _dense(self.c_proj, out, dtype)
+        out = out.transpose(1, 2).reshape(batch, seq, self.heads * config.head_dim)
+        out = _projection(self.c_proj, out, dtype, self.mesh)
         return _dropout(out, config.residual_dropout_rate, deterministic, generator)
+
+
+def _projection(layer: nn.Linear, x: torch.Tensor, dtype, mesh) -> torch.Tensor:
+    """An output projection: under tensor parallelism this rank's partial
+    product, summed over the model group, then the replicated bias."""
+    if mesh is None:
+        return _dense(layer, x, dtype)
+    partial = F.linear(x, layer.weight.to(dtype))
+    return mesh_lib.reduce_from_model(partial, mesh) + layer.bias.to(dtype)
 
 
 class Mlp(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
         self.config = config
+        self.mesh = config.flash_mesh if mesh_lib.tensor_parallel(config.flash_mesh) else None
         e = config.embed_dim
-        self.c_fc = nn.Linear(e, 4 * e, dtype=config.param_dtype)
-        self.c_proj = nn.Linear(4 * e, e, dtype=config.param_dtype)
+        hidden = _model_share(4 * e, "mlp", config.flash_mesh)
+        self.c_fc = nn.Linear(e, hidden, dtype=config.param_dtype)
+        self.c_proj = nn.Linear(hidden, e, dtype=config.param_dtype)
 
     def forward(self, x, deterministic=True, generator=None):
         dtype = self.config.dtype
+        if self.mesh is not None:
+            x = mesh_lib.copy_to_model(x, self.mesh)
         hidden = F.gelu(_dense(self.c_fc, x, dtype), approximate="tanh")
-        out = _dense(self.c_proj, hidden, dtype)
+        out = _projection(self.c_proj, hidden, dtype, self.mesh)
         return _dropout(out, self.config.residual_dropout_rate, deterministic, generator)
 
 
@@ -270,7 +315,13 @@ class Transformer(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Flax's initializers: truncated normal (+-2 std) matmul and
         embedding weights, zero biases, unit LayerNorm scales and a Glorot
-        uniform relative table."""
+        uniform relative table. Under tensor parallelism: the full
+        single-device tensors, of which this rank keeps its slices."""
+        if mesh_lib.tensor_parallel(self.config.flash_mesh):
+            full = Transformer(dataclasses.replace(self.config, flash_mesh=None))
+            full.reset_parameters(generator)
+            self.load_state_dict(mesh_lib.shard_params(full.state_dict(), self.config.flash_mesh))
+            return
         std = self.config.initializer_stddev
         # Flax rescales so the truncated distribution keeps stddev ``std``.
         scaled = std / 0.87962566103423978

@@ -5,6 +5,10 @@ The sources under ``composer_tpu_torch/csrc`` are compiled by ``nvcc`` for
 headers, so a build takes seconds). The library lands in ``build/kernels``
 at the repository root (ignored by git), named after a hash of its source,
 the shared headers and the flags, so that an edited source is rebuilt.
+Processes that reach a first build together (the ranks of a mesh) each
+compile into a temporary directory of their own and ``os.replace`` the
+result onto the same name: the rename is atomic, so a library is never seen
+half written, and a process that loaded the first copy keeps its mapping.
 """
 
 from __future__ import annotations

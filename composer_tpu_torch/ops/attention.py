@@ -7,7 +7,9 @@ attention goes through ``ops/flash_attention.py`` (the Hopper kernels on a
 CUDA tensor, their plain version on a CPU tensor). Every other shape takes
 the plain path below, as
 the JAX package sends it to its band or XLA paths; those compute the same
-function and are not ported.
+function and are not ported. Under a mesh of more than one rank
+(``flash_mesh``), the flash path is ``sharded_relative_flash_attention`` on
+this rank's block.
 
 Layout convention: ``E[h, window-1-d]`` holds the embedding for relative
 distance ``d`` (0 = the query position itself, increasing into the past).
@@ -89,7 +91,8 @@ def takes_flash_path(q, k, *, q_position=None, mask=None, use_pallas: bool = Fal
 
 def multihead_attention(q, k, v, *, rel_embedding=None, q_position=None,
                         scale: bool = True, mask=None, dropout_generator=None,
-                        dropout_rate: float = 0.0, use_pallas: bool = False) -> torch.Tensor:
+                        dropout_rate: float = 0.0, use_pallas: bool = False,
+                        flash_mesh=None) -> torch.Tensor:
     """Causal multi-head attention core.
 
     q: [B, H, S_q, D]; k, v: [B, H, S_k, D]. ``mask`` is [S_q, S_k] with
@@ -98,12 +101,18 @@ def multihead_attention(q, k, v, *, rel_embedding=None, q_position=None,
     (inverted dropout) with random numbers from ``dropout_generator``.
     ``use_pallas`` routes by ``takes_flash_path``; the flash path draws one
     seed from the generator and keeps its dropout inside the kernel.
+    ``flash_mesh``: the ``parallel/mesh.py`` mesh whose block of the batch
+    and heads q, k and v are; with more than one rank the flash path folds
+    the rank's shard into its dropout seed (JAX's ``shard_map`` gate).
     """
     s_q, s_k = q.shape[2], k.shape[2]
     compute_dtype = q.dtype
 
     if takes_flash_path(q, k, q_position=q_position, mask=mask, use_pallas=use_pallas):
-        from composer_tpu_torch.ops.flash_attention import relative_flash_attention
+        from composer_tpu_torch.ops.flash_attention import (
+            relative_flash_attention,
+            sharded_relative_flash_attention,
+        )
 
         seed = None
         if dropout_rate > 0.0:
@@ -111,6 +120,10 @@ def multihead_attention(q, k, v, *, rel_embedding=None, q_position=None,
             # device so that drawing it does not wait for the device.
             seed = torch.randint(0, 2**31 - 1, (1,), generator=dropout_generator,
                                  device=q.device, dtype=torch.int32)
+        if flash_mesh is not None and flash_mesh.size > 1:
+            return sharded_relative_flash_attention(
+                q, k, v, rel_embedding, mesh=flash_mesh, scale=scale,
+                dropout_rate=dropout_rate, dropout_seed=seed)
         return relative_flash_attention(q, k, v, rel_embedding, scale=scale,
                                         dropout_rate=dropout_rate, dropout_seed=seed)
 

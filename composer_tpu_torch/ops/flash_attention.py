@@ -431,3 +431,47 @@ def relative_flash_attention(q, k, v, rel_embedding=None, *, scale=True,
     out, _ = _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                    rel_embedding, scale, float(dropout_rate), dropout_seed)
     return out
+
+
+def shard_seed(dropout_seed, mesh):
+    """The dropout seed of this rank's shard, folded in as the JAX package
+    folds it under ``shard_map``: ``shard = data_index * model +
+    model_index``, ``seed + shard * 1000003`` with int32 wrap-around. A
+    tensor seed stays on its device."""
+    shard = mesh.data_index * mesh.model + mesh.model_index
+    if not torch.is_tensor(dropout_seed):
+        return (int(dropout_seed) + shard * 1000003 + 2**31) % 2**32 - 2**31
+    folded = dropout_seed.to(torch.int64) + shard * 1000003
+    return ((folded + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def sharded_relative_flash_attention(q, k, v, rel_embedding=None, *, mesh, scale=True,
+                                     dropout_rate: float = 0.0, dropout_seed=None):
+    """Flash attention on this rank's block of a ``(data, model)`` mesh:
+    port of ``pallas_attention.sharded_relative_flash_attention``.
+
+    JAX runs the kernel per shard under ``shard_map``; here each rank
+    already holds its block, ``[batch / data, heads / model, S, D]``, and
+    ``rel_embedding`` its ``heads / model`` rows of the table (the batch is
+    cut where a rank takes its rows, ``parallel/mesh.py::local_rows``, and
+    the heads where the model is built, ``models/transformer.py``; each
+    raises with JAX's message when the cut does not divide). Attention needs
+    no collective: this calls ``relative_flash_attention``, the Hopper
+    kernels on a CUDA tensor and their plain version on a CPU tensor.
+
+    Dropout folds the shard into the seed (``shard_seed``), so masks differ
+    between ranks. The table's gradient ``dE`` stays rank-local: JAX sums it
+    over the data axis inside ``shard_map``'s transpose, the port leaves
+    that sum to the trainer's one data-group gradient ``all_reduce``, which
+    covers ``rel_embedding`` like every other parameter (summing it here as
+    well would count it twice).
+    """
+    if rel_embedding is not None and rel_embedding.shape[0] != q.shape[1]:
+        raise ValueError(f"the relative table has {rel_embedding.shape[0]} heads and this "
+                         f"rank's block {q.shape[1]}")
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        dropout_seed = shard_seed(dropout_seed, mesh)
+    return relative_flash_attention(q, k, v, rel_embedding, scale=scale,
+                                    dropout_rate=dropout_rate, dropout_seed=dropout_seed)

@@ -69,6 +69,7 @@ from composer_tpu_torch.models.transformer import init_cache
 from composer_tpu_torch.ops import decode_kernel as dk
 from composer_tpu_torch.ops import decode_kernel_segmented as seg
 from composer_tpu_torch.ops import decode_kernel_wide_segmented as wseg
+from composer_tpu_torch.parallel import mesh as mesh_lib
 from composer_tpu_torch.train import generate as gen
 from composer_tpu_torch.train.generate import _use_wide_kernel
 
@@ -329,28 +330,46 @@ class GenerationService(_OverloadControlMixin):
     kernels a Transformer's route needs, so a build failure raises here and
     not in a request. On the card, a Transformer request whose padded cache
     no decode kernel admits (``_kernel_admits``) is refused, where the JAX
-    package runs it unfused. ``mesh`` must be None (ROADMAP.md, Queue 1
-    item 8). There is no ``wide_batch_pad``: the JAX package pads every
-    batch of a wide model to ``max_batch_size`` because each batch size is a
-    multi-minute Mosaic compile, while a CUDA kernel has no per-shape compile
-    and ``decode_wide`` at 8 rows costs more than at 1. The JAX worker keeps
+    package runs it unfused. There is no ``wide_batch_pad``: the JAX package
+    pads every batch of a wide model to ``max_batch_size`` because each batch
+    size is a multi-minute Mosaic compile, while a CUDA kernel has no
+    per-shape compile and ``decode_wide`` at 8 rows costs more than at 1. The JAX worker keeps
     one batch in flight, since its ``generate_ids`` returns a device array;
     the port's returns host ids, so each batch is harvested as soon as it
     has run.
+
+    ``mesh`` (``parallel/mesh.py``): every rank of the mesh constructs the
+    service with the same full model and weights, of which each keeps its
+    slices (a Transformer is rebuilt in its tensor-parallel form, raising
+    ``ValueError`` where the model degree does not divide its heads); the
+    device is the mesh's. The leader (rank (0, 0)) takes the requests,
+    coalesces them, pads each dispatch to a multiple of the data degree
+    and broadcasts it (prompts, lengths, sampling vectors, seed) to a
+    worker loop on every other rank; all decode their rows on the unfused
+    path (``generate_ids(engine="xla")``), and the leader harvests the
+    gathered ids. ``close()`` on the leader stops the other ranks' loops;
+    they wait for that in ``wait_closed()``. Nothing is built for the
+    decode kernels.
     """
 
     def __init__(self, model, model_type: ModelType, variables, vocab_size: int,
                  max_batch_size: int = 8, max_wait_ms: float = 20.0, seed: int = 0,
                  max_queue_depth: int = 0, default_deadline_ms: float = 0.0, mesh=None,
                  device=None):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "Serving on a device mesh is not ported yet (ROADMAP.md, Queue 1 item 8).")
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"the mesh runs on {mesh.device}, not on {device}")
+            device = mesh.device
         self.device = _service_device(device, type(self).__name__)
-        self.model = model
         self.model_type = model_type
         self.vocab_size = vocab_size
         state = variables if variables is not None else model.state_dict()
+        if mesh is not None:
+            if model_type == ModelType.TRANSFORMER:
+                model = type(model)(dataclasses.replace(model.config, flash_mesh=mesh))
+            state = mesh_lib.shard_params(state, mesh)
+        self.model = model
         self.params = {name: t.detach().to(self.device) for name, t in state.items()}
         self.max_batch_size = max(1, int(max_batch_size))
         self.max_wait_s = max(0.0, float(max_wait_ms) / 1000.0)
@@ -359,7 +378,7 @@ class GenerationService(_OverloadControlMixin):
         # no CUDA call.
         self._weights_outgrow_l2 = (transformer
                                     and gen._weights_outgrow_fast_memory(model, self.device))
-        if self.device.type == "cuda" and transformer:
+        if self.device.type == "cuda" and transformer and mesh is None:
             from composer_tpu_torch.ops import _build
 
             libraries = (("decode_wide",) if self._weights_outgrow_l2
@@ -377,13 +396,24 @@ class GenerationService(_OverloadControlMixin):
         self._submit_lock = threading.Lock()
         self._init_overload(max_queue_depth, default_deadline_ms)
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
-        self._worker = threading.Thread(target=self._run, name="generation-worker", daemon=True)
+        self.is_leader = mesh is None or mesh.rank == mesh.leader
+        target = self._run if self.is_leader else self._follow
+        self._worker = threading.Thread(target=target, name="generation-worker", daemon=True)
         self._worker.start()
 
     # ------------------------------------------------------------------ public
+    def submit(self, *args, **kwargs):
+        if not self.is_leader:
+            raise RuntimeError("on a mesh, only the leader (rank (0, 0)) takes requests")
+        return super().submit(*args, **kwargs)
+
     def close(self):
         """Stops the worker after the batch it runs (waiting at most 30 s)
-        and fails the requests still queued."""
+        and fails the requests still queued; on a mesh's leader, also stops
+        the other ranks' loops. On another rank, ``wait_closed``."""
+        if not self.is_leader:
+            self.wait_closed()
+            return
         with self._submit_lock:
             self._closed = True
             self._queue.put(None)
@@ -394,12 +424,73 @@ class GenerationService(_OverloadControlMixin):
         super()._validate(request)
         cache_len = sum(self._signature(request))  # the batch's prompt width + length
         if (self.device.type == "cuda" and self.model_type == ModelType.TRANSFORMER
-                and not _kernel_admits(
+                and self.mesh is None and not _kernel_admits(
                     self.model, self.model_type, cache_len, self._weights_outgrow_l2)):
             raise InvalidParameterError(
                 f"No decode kernel admits a {cache_len}-row cache for this model (prompt "
                 f"{request.prompt_ids.shape[0]} and length {request.length}, each rounded up "
                 f"to a power of two); use a shorter prompt or length.")
+
+    def wait_closed(self, timeout: Optional[float] = None) -> None:
+        """On a rank other than the leader: blocks until the leader's
+        ``close`` has stopped this rank's loop (raising ``TimeoutError``
+        after ``timeout`` seconds)."""
+        self._worker.join(timeout)
+        if self._worker.is_alive():
+            raise TimeoutError("the mesh's leader did not close the service in time")
+
+    # ------------------------------------------------------------ mesh loop
+    _STOP, _RUN = 0, 1
+
+    def _broadcast(self, tensor: torch.Tensor) -> torch.Tensor:
+        return mesh_lib.broadcast_(tensor, self.mesh.leader, self.mesh.group)
+
+    def _share_dispatch(self, header, arrays=None):
+        """The leader's dispatch on every rank of the mesh: ``header``
+        (kind, rows, width, length, seed, ragged) and, for a run, the
+        prompts, prompt lengths and sampling vectors. Returns them as
+        numpy arrays."""
+        device = self.mesh.device
+        header = self._broadcast(torch.as_tensor(header, dtype=torch.int64, device=device))
+        kind, rows, width = (int(v) for v in header[:3])
+        if kind == self._STOP:
+            return header.tolist(), None
+        shapes = ((rows, width), (rows,), (rows,), (rows,), (rows,))
+        dtypes = (torch.int64, torch.int64, torch.float32, torch.int64, torch.float32)
+        shared = []
+        for index, (shape, dtype) in enumerate(zip(shapes, dtypes)):
+            tensor = (torch.as_tensor(arrays[index], device=device).to(dtype)
+                      if arrays is not None else torch.empty(shape, dtype=dtype, device=device))
+            shared.append(self._broadcast(tensor.contiguous()).cpu().numpy())
+        return header.tolist(), shared
+
+    def _mesh_generate(self, header, arrays):
+        length, seed, ragged = header[3:]
+        prompts, plens, temps, topks, topps = arrays
+        return gen.generate_ids(
+            self.model, self.model_type, self.params, prompts.astype(np.int32), length=length,
+            temperature=temps, seed=seed, top_k=topks.astype(np.int32), top_p=topps,
+            prompt_lengths=plens.astype(np.int32) if ragged else None, engine="xla",
+            mesh=self.mesh)
+
+    def _follow(self):
+        """The loop of a rank other than the leader: runs each dispatch the
+        leader broadcasts until it broadcasts the stop."""
+        def loop():
+            while True:
+                header, arrays = self._share_dispatch([self._STOP] * 6)
+                if header[0] == self._STOP:
+                    return
+                try:
+                    self._mesh_generate(header, arrays)
+                except Exception:  # the leader's run fails alike and reports it
+                    logging.exception("generation failed on this rank")
+
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                loop()
+        else:
+            loop()
 
     # ------------------------------------------------------------------ worker
     def _next_seed(self) -> int:
@@ -418,6 +509,13 @@ class GenerationService(_OverloadControlMixin):
         return (prompt_len, _pow2_ceil(request.length))
 
     def _serve(self):
+        try:
+            self._serve_requests()
+        finally:
+            if self.mesh is not None and self.mesh.group is not None:
+                self._share_dispatch([self._STOP] * 6)
+
+    def _serve_requests(self):
         while True:
             request = self._queue.get()
             if request is None:
@@ -461,6 +559,9 @@ class GenerationService(_OverloadControlMixin):
         try:
             rows = len(batch)
             padded = _bucket(rows, self.max_batch_size)
+            if self.mesh is not None:
+                # Each data coordinate takes an equal block of rows.
+                padded = -(-padded // self.mesh.data) * self.mesh.data
             pad = padded - rows
             # Rows pad to the bucket width; their real lengths ride into the
             # kernels as teacher-forcing boundaries. Padding rows replicate
@@ -475,6 +576,14 @@ class GenerationService(_OverloadControlMixin):
             topks = np.asarray([r.top_k for r in filled], np.int32)
             topps = np.asarray([r.top_p for r in filled], np.float32)
             bucket_len = self._signature(batch[0])[1]
+            if self.mesh is not None:
+                ragged = self.model_type == ModelType.TRANSFORMER
+                header, shared = self._share_dispatch(
+                    [self._RUN, padded, width, bucket_len, self._next_seed(), int(ragged)],
+                    (prompts, plens, temps, topks, topps))
+                ids = self._mesh_generate(header, shared)
+                self.batch_sizes.append(rows)
+                return batch, ids, width
             spec_before = gen.SPEC_DISPATCHES
             ids = gen.generate_ids(
                 self.model, self.model_type, self.params, prompts, length=bucket_len,

@@ -32,6 +32,15 @@ at batch > 1 it takes the unfused path. ``megakernel`` and ``wide`` run
 their kernel on CUDA and its plain PyTorch version on the CPU. ``xla`` runs
 the unfused path.
 
+Under a mesh (a tensor-parallel Transformer's ``config.flash_mesh``, or
+``mesh=`` for a data-parallel one or MusicRNN), every engine but ``auto``
+and ``xla`` raises, and generation runs the unfused path, as the JAX
+package's mesh serving does: each rank decodes its data coordinate's rows
+of the prompt (with its heads' KV cache under tensor parallelism), samples
+from a generator seeded by ``(seed, data coordinate)``, so that the ranks
+of a model group, whose logits are equal, draw the same ids, and the rows
+are then gathered over the data group: every rank returns the whole batch.
+
 Positions past ``window_size`` clamp to the last learned position embedding.
 """
 
@@ -55,6 +64,7 @@ from composer_tpu_torch.ops.decode_kernel_spec import (
     speculative_generate,
 )
 from composer_tpu_torch.ops.sampling import sample_filtered_rows
+from composer_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _apply(model, params, tokens, cache):
@@ -519,11 +529,60 @@ def _use_kernel(model, model_type, cache_len: int, engine: str, device) -> bool:
     return engine == "megakernel" or device.type == "cuda"
 
 
+def _unfused_generate(model, params, prompt_host, plens, length: int, cache_len: int,
+                      seed: int, sampling, device):
+    """The unfused Transformer path (``engine="xla"``) on host prompts."""
+    prompt = torch.as_tensor(prompt_host, device=device).long()
+    generator = torch.Generator(device=device).manual_seed(seed)
+    warpers = tuple(torch.as_tensor(v, device=device) for v in sampling)
+    if plens is not None:
+        return _ragged_transformer_generate(model, params, prompt, plens, generator, length,
+                                            cache_len, *warpers)
+    return _transformer_generate(model, params, prompt, generator, length, cache_len,
+                                 *warpers)
+
+
+def _generation_mesh(model, model_type, mesh, engine: str):
+    """The mesh that generation runs on (None for one device); raises for
+    an engine that a mesh cannot run."""
+    config_mesh = (getattr(model.config, "flash_mesh", None)
+                   if model_type == ModelType.TRANSFORMER else None)
+    if mesh is not None and config_mesh is not None and mesh is not config_mesh:
+        raise ValueError("mesh is not the mesh that the model was built for")
+    mesh = mesh if mesh is not None else config_mesh
+    if mesh is None or mesh.size == 1:
+        return None
+    if engine not in ("auto", "xla"):
+        raise ValueError(f"engine={engine!r} runs on one device; a mesh generates on the "
+                         "unfused path (engine='xla' or 'auto')")
+    return mesh
+
+
+def _mesh_generate(model, model_type, params, prompt_host, plens, length: int,
+                   cache_len: int, seed: int, sampling, mesh, device):
+    """This rank's rows on the unfused path, gathered over the data group."""
+    rows = mesh_lib.local_rows(mesh, prompt_host)
+    sampling = tuple(mesh_lib.local_rows(mesh, v) for v in sampling)
+    seed = seed + mesh.data_index * 1000003
+    if model_type != ModelType.TRANSFORMER:
+        generated = _rnn_generate(
+            model, params, torch.as_tensor(rows, device=device).long(),
+            torch.Generator(device=device).manual_seed(seed), length,
+            *(torch.as_tensor(v, device=device) for v in sampling))
+    else:
+        local_plens = None if plens is None else mesh_lib.local_rows(mesh, plens)
+        if local_plens is not None and np.all(local_plens == rows.shape[1]):
+            local_plens = None
+        generated = _unfused_generate(model, params, rows, local_plens, length, cache_len,
+                                      seed, sampling, device)
+    return mesh_lib.gather_rows(mesh, generated)
+
+
 @torch.no_grad()
 def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
                  length: int = 1024, temperature: float = 1.0, seed: int = 0,
                  cache_len: Optional[int] = None, engine: str = "auto", top_k: int = 0,
-                 top_p: float = 0.0, prompt_lengths=None) -> np.ndarray:
+                 top_p: float = 0.0, prompt_lengths=None, mesh=None) -> np.ndarray:
     """Generates ``length`` new event ids after ``prompt_ids``.
 
     prompt_ids: int array ``[batch, prompt_len]`` (or ``[prompt_len]``).
@@ -538,6 +597,9 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
     decodes greedily. ``engine``: ``auto``, ``spec``, ``megakernel``,
     ``wide`` or ``xla`` (see the module docstring). After a speculative run,
     ``LAST_SPEC_STATS`` holds its stats and ``SPEC_DISPATCHES`` has risen.
+    ``mesh``: see the module docstring (a tensor-parallel Transformer's is
+    its config's; every rank of the mesh must call this with the same
+    arguments, and the batch must divide by the data degree).
     """
     if isinstance(prompt_ids, torch.Tensor):
         prompt_ids = prompt_ids.cpu().numpy()
@@ -561,7 +623,11 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
     if cache_len is None:
         cache_len = prompt_host.shape[1] + length
     device = _device(model, params_or_variables)
-    if model_type != ModelType.TRANSFORMER:
+    mesh = _generation_mesh(model, model_type, mesh, engine)
+    if mesh is not None:
+        generated = _mesh_generate(model, model_type, params_or_variables, prompt_host, plens,
+                                   length, cache_len, seed, (temps, topks, topps), mesh, device)
+    elif model_type != ModelType.TRANSFORMER:
         generated = _rnn_generate(
             model, params_or_variables, torch.as_tensor(prompt_host, device=device).long(),
             torch.Generator(device=device).manual_seed(seed), length,
@@ -581,19 +647,8 @@ def generate_ids(model, model_type: ModelType, params_or_variables, prompt_ids,
             cache_len=cache_len, top_k=topks, top_p=topps, prompt_lengths=plens,
         )
     else:
-        prompt = torch.as_tensor(prompt_host, device=device).long()
-        generator = torch.Generator(device=device).manual_seed(seed)
-        warpers = (torch.as_tensor(temps, device=device), torch.as_tensor(topks, device=device),
-                   torch.as_tensor(topps, device=device))
-        if plens is not None:
-            generated = _ragged_transformer_generate(
-                model, params_or_variables, prompt, plens, generator, length, cache_len,
-                *warpers,
-            )
-        else:
-            generated = _transformer_generate(
-                model, params_or_variables, prompt, generator, length, cache_len, *warpers,
-            )
+        generated = _unfused_generate(model, params_or_variables, prompt_host, plens, length,
+                                      cache_len, seed, (temps, topks, topps), device)
 
     result = np.concatenate([prompt_host, generated.cpu().numpy().astype(np.int32)], axis=1)
     return result[0] if squeeze else result

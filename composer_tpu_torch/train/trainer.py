@@ -24,8 +24,26 @@ rescales by ``max_norm / norm`` only when ``norm >= max_norm`` (unlike
 Chrome trace, with the card's kernels when the trainer runs on CUDA) of the
 call's steps [2, 2 + profile_steps).
 
-Not ported: a device mesh (ROADMAP.md, Queue 1 item 8) and the TPU
-dropout-generator choice (``dropout_rng_impl``).
+``Trainer(mesh=)`` trains on a ``(data, model)`` mesh of
+``torch.distributed`` ranks (``parallel/mesh.py``), each rank a process
+that runs this same loop. Every rank initialises the full model from
+``seed`` and keeps its slice, so a mesh run starts at the single-device
+weights. Each rank takes its data coordinate's rows of the global batch;
+the Transformer is cut by heads and MLP units over the model axis
+(``models/transformer.py``; MusicRNN is replicated there, data parallel
+only, as in the JAX package). After the backward pass the gradients are
+summed over the data group and divided by its degree, in one
+``all_reduce``; the clipping norm is global (the squares of the sharded
+gradients summed over the model group, the replicated ones counted once);
+Adam runs elementwise on each rank's slices. Losses and accuracies are
+averaged over the data group. Residual dropout draws from a generator
+seeded by ``(seed, data coordinate)``, the same across a model group.
+Checkpoints are gathered to the leader (rank (0, 0)) and written in the
+single-device format, so a single-device ``restore`` and
+``scripts/convert_checkpoint.py`` read them unchanged; ``restore`` on a
+mesh slices the full file. Only the leader writes checkpoints and metrics.
+
+Not ported: the TPU dropout-generator choice (``dropout_rng_impl``).
 """
 
 from __future__ import annotations
@@ -46,6 +64,7 @@ from composer_tpu_torch import ModelSaveFrequencyMode
 from composer_tpu_torch.exceptions import CheckpointError
 from composer_tpu_torch.models import ModelType
 from composer_tpu_torch.models.music_rnn import init_state as rnn_init_state
+from composer_tpu_torch.parallel import mesh as mesh_lib
 from composer_tpu_torch.train.checkpoint import CheckpointManager
 from composer_tpu_torch.train.metrics import MetricsWriter
 
@@ -92,6 +111,8 @@ class Adam:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        # grads -> their squared global norm; None sums them all here.
+        self.squared_norm = None
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -102,7 +123,7 @@ class Adam:
         """One update from the gradients in ``.grad`` (missing ones are 0)."""
         b1, b2 = 0.9, 0.999
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        self.spec.clip_(grads)
+        self.spec.clip_(grads, self.squared_norm)
         step_size = -self.spec.learning_rate_at(self.count)
         self.count += 1
         torch._foreach_mul_(self.mu, b1)
@@ -151,11 +172,16 @@ class Optimizer:
         fraction = 1.0 - min(max(count, 0), self.warmup_steps) / self.warmup_steps
         return -self.learning_rate * fraction + self.learning_rate
 
-    def clip_(self, grads) -> None:
-        """``optax.clip_by_global_norm`` on the gradients, in place."""
+    def clip_(self, grads, squared_norm=None) -> None:
+        """``optax.clip_by_global_norm`` on the gradients, in place.
+        ``squared_norm`` (grads -> a scalar tensor) forms the squared global
+        norm where this rank holds slices of some of them."""
         if not self.gradient_clip_norm or self.gradient_clip_norm <= 0.0:
             return
-        norm = torch.stack([torch.sum(g * g) for g in grads]).sum().sqrt()
+        if squared_norm is None:
+            norm = torch.stack([torch.sum(g * g) for g in grads]).sum().sqrt()
+        else:
+            norm = squared_norm(grads).sqrt()
         scaled = [g / norm * self.gradient_clip_norm for g in grads]
         keep = norm < self.gradient_clip_norm
         for g, s in zip(grads, scaled):
@@ -170,20 +196,33 @@ def make_optimizer(learning_rate: float, eps: float = 1e-7, warmup_steps: int = 
 
 class Trainer:
     """Shared train/evaluate loop for both model families. Runs on
-    ``device``: the CUDA card unless the caller asks for ``"cpu"``."""
+    ``device``: the CUDA card unless the caller asks for ``"cpu"``. With a
+    ``mesh`` (``parallel/mesh.py``), on the mesh's device, whose type must
+    be ``device``'s; a Transformer is rebuilt in its tensor-parallel form
+    (``ValueError`` where the model degree does not divide its heads)."""
 
     def __init__(self, model, model_type: ModelType, learning_rate: float, mesh=None,
                  seed: int = 0, warmup_steps: int = 0, gradient_clip_norm: float = 0.0,
                  device="cuda"):
+        self.device = torch.device(device)
         if mesh is not None:
-            raise NotImplementedError(
-                "Training on a device mesh is not ported yet (ROADMAP.md, Queue 1 item 8).")
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh runs on {mesh.device}, not on {self.device}")
+            self.device = mesh.device
+            if model_type == ModelType.TRANSFORMER:
+                model = type(model)(dataclasses.replace(model.config, flash_mesh=mesh))
+            else:
+                for norm in model.batch_norms:
+                    if norm is not None:
+                        norm.mesh = mesh
         self.model = model
         self.model_type = model_type
         self.optimizer = make_optimizer(learning_rate, warmup_steps=warmup_steps,
                                         gradient_clip_norm=gradient_clip_norm)
+        self.mesh = mesh
         self.seed = seed
-        self.device = torch.device(device)
+        # Only the leader writes checkpoints, metrics and the progress bar.
+        self.is_leader = mesh is None or mesh.rank == mesh.leader
 
     # ------------------------------------------------------------------ state
     def init_state(self, batch_size: int, window_size: int) -> TrainState:
@@ -194,23 +233,106 @@ class Trainer:
         del batch_size, window_size
         self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
         self.model.to(self.device)
-        return TrainState(step=1, epoch=1, model=self.model,
-                          optimizer=self.optimizer.init(self.model.parameters()))
+        optimizer = self.optimizer.init(self.model.parameters())
+        if self.mesh is not None:
+            optimizer.squared_norm = self._squared_norm
+        return TrainState(step=1, epoch=1, model=self.model, optimizer=optimizer)
 
     def make_dropout_generator(self) -> torch.Generator:
-        """The dropout stream of one ``train`` call, seeded by ``seed + 1``."""
-        return torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        """The dropout stream of one ``train`` call, seeded by ``seed + 1``
+        (and on a mesh by the data coordinate, the same across a model
+        group)."""
+        seed = self.seed + 1
+        if self.mesh is not None:
+            seed += self.mesh.data_index * 1000003
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def init_rnn_carry(self, batch_size: int):
-        """Zeroed MusicRNN carries on the device; None for the Transformer."""
+        """Zeroed MusicRNN carries on the device (this rank's rows of a
+        ``batch_size`` batch); None for the Transformer."""
         if self.model_type != ModelType.MUSIC_RNN:
             return None
+        if self.mesh is not None:
+            batch_size //= self.mesh.data
         return rnn_init_state(self.model.config, batch_size, device=self.device)
+
+    # ------------------------------------------------------------------ mesh
+    def _sharded_names(self) -> set:
+        return {name for name, _ in self.model.named_parameters()
+                if mesh_lib.is_sharded(name, self.mesh)}
+
+    def _squared_norm(self, grads) -> torch.Tensor:
+        """The squared global norm of ``grads`` (in ``model.parameters()``
+        order): the sharded ones' squares summed over the model group, the
+        replicated ones' counted once."""
+        sharded = self._sharded_names()
+        parts = {True: [], False: []}
+        for (name, _), g in zip(self.model.named_parameters(), grads):
+            parts[name in sharded].append(torch.sum(g * g))
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        if parts[True]:
+            total = mesh_lib.all_reduce_(torch.stack(parts[True]).sum(), self.mesh.model_group)
+        if parts[False]:
+            total = total + torch.stack(parts[False]).sum()
+        return total
+
+    def _average_gradients(self, model) -> None:
+        """Every gradient summed over the data group and divided by its
+        degree, in one ``all_reduce`` of one flat buffer."""
+        if self.mesh.data_group is None:
+            return
+        params = list(model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        mesh_lib.all_reduce_(flat, self.mesh.data_group).div_(self.mesh.data)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad.copy_(g.view_as(p))
+
+    def _global_metrics(self, loss, accuracy):
+        if self.mesh is None:
+            return loss, accuracy
+        both = mesh_lib.mean_over_data(torch.stack([loss.detach(), accuracy.detach()]),
+                                       self.mesh)
+        return both[0], both[1]
+
+    def checkpoint_state(self, state: TrainState) -> dict:
+        """``state.state_dict()`` in the single-device layout: on a mesh the
+        parameters and Adam's moments gathered over the model group (every
+        rank of it must call this)."""
+        saved = state.state_dict()
+        if not mesh_lib.tensor_parallel(self.mesh):
+            return saved
+        names = [name for name, _ in state.model.named_parameters()]
+        saved["params"] = mesh_lib.gather_params(saved["params"], self.mesh)
+        opt = saved["opt_state"]
+        for moment in ("mu", "nu"):
+            full = mesh_lib.gather_params(dict(zip(names, opt[moment])), self.mesh)
+            opt[moment] = [full[name] for name in names]
+        return saved
+
+    def _load_checkpoint_state(self, state: TrainState, restored: dict) -> None:
+        """Loads a single-device checkpoint, cut to this rank's slices on a mesh."""
+        params, opt = restored["params"], dict(restored["opt_state"])
+        if mesh_lib.tensor_parallel(self.mesh):
+            names = [name for name, _ in state.model.named_parameters()]
+            params = mesh_lib.shard_params(params, self.mesh)
+            for moment in ("mu", "nu"):
+                if len(opt[moment]) != len(names):
+                    raise ValueError("optimizer state does not match the parameters")
+                cut = mesh_lib.shard_params(dict(zip(names, opt[moment])), self.mesh)
+                opt[moment] = [cut[name] for name in names]
+        state.model.load_state_dict(params)
+        state.optimizer.load_state_dict(opt)
 
     # ------------------------------------------------------------------ steps
     def _place_batch(self, x, y):
-        return (torch.as_tensor(x).to(self.device, torch.long),
-                torch.as_tensor(y).to(self.device, torch.long))
+        """The batch on the device: on a mesh, this data coordinate's rows."""
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        if self.mesh is not None:
+            x, y = mesh_lib.local_rows(self.mesh, x), mesh_lib.local_rows(self.mesh, y)
+        return x.to(self.device, torch.long), y.to(self.device, torch.long)
 
     def _forward(self, model, x, carry, **kwargs):
         """The model's logits and, for MusicRNN, its new carry (detached)."""
@@ -231,9 +353,12 @@ class Trainer:
                                       generator=generator)
         loss, accuracy = cross_entropy_and_accuracy(logits, y)
         loss.backward()
+        if self.mesh is not None:
+            self._average_gradients(state.model)
         state.optimizer.step()
         state.step += 1
-        metrics = {"loss": loss.detach(), "accuracy": accuracy}
+        loss, accuracy = self._global_metrics(loss.detach(), accuracy)
+        metrics = {"loss": loss, "accuracy": accuracy}
         if carry is not None:
             metrics["carry"] = carry
         return metrics
@@ -245,7 +370,7 @@ class Trainer:
         x, y = self._place_batch(x, y)
         state.model.eval()
         logits, carry = self._forward(state.model, x, carry)
-        loss, accuracy = cross_entropy_and_accuracy(logits, y)
+        loss, accuracy = self._global_metrics(*cross_entropy_and_accuracy(logits, y))
         metrics = {"loss": loss, "accuracy": accuracy}
         if carry is not None:
             metrics["carry"] = carry
@@ -272,8 +397,9 @@ class Trainer:
         """
         logdir = Path(logdir)
         save_frequency_mode = ModelSaveFrequencyMode(save_frequency_mode)
-        checkpoints = CheckpointManager(logdir, max_to_keep=max_checkpoints)
-        writer = MetricsWriter(logdir / "train")
+        checkpoints = _Checkpoints(self, logdir, max_checkpoints)
+        writer = MetricsWriter(logdir / "train") if self.is_leader else _NoMetrics()
+        show_progress_bar = show_progress_bar and self.is_leader
         generator = self.make_dropout_generator()
         carry = self.init_rnn_carry(dataset.batch_size)
         steps_per_epoch = len(dataset)
@@ -333,7 +459,7 @@ class Trainer:
                         progress.update(1)
                         if (save_frequency_mode == ModelSaveFrequencyMode.GLOBAL_STEP
                                 and global_step % save_frequency == 0):
-                            checkpoints.save(global_step, state.state_dict())
+                            checkpoints.save(global_step, state)
                 finally:
                     # Record already-computed step metrics even when an
                     # exception escapes mid-epoch.
@@ -350,12 +476,12 @@ class Trainer:
                 state.epoch += 1
                 if (save_frequency_mode == ModelSaveFrequencyMode.EPOCH
                         and current_epoch % save_frequency == 0):
-                    checkpoints.save(state.step - 1, state.state_dict())
+                    checkpoints.save(state.step - 1, state)
                 writer.flush()
 
             final_step = state.step - 1
-            if final_step > 0 and checkpoints.latest_step() != final_step:
-                checkpoints.save(final_step, state.state_dict())
+            if final_step > 0 and checkpoints.latest != final_step:
+                checkpoints.save(final_step, state)
         finally:
             if profiler is not None:  # the run ended inside the profiled steps
                 self._stop_profile(profiler, profile_dir)
@@ -415,12 +541,12 @@ class Trainer:
 
     # ------------------------------------------------------------- restoring
     def restore(self, logdir, batch_size: int, window_size: int) -> TrainState:
-        """Restores the latest checkpoint under ``logdir``."""
+        """Restores the latest checkpoint under ``logdir`` (on a mesh, each
+        rank its slices of it)."""
         state = self.init_state(batch_size, window_size)
         restored = CheckpointManager(Path(logdir)).restore(map_location=self.device)
         try:
-            state.model.load_state_dict(restored["params"])
-            state.optimizer.load_state_dict(restored["opt_state"])
+            self._load_checkpoint_state(state, restored)
         except (KeyError, RuntimeError, ValueError) as error:
             raise CheckpointError(
                 f"Checkpoint under '{logdir}' does not match the "
@@ -429,3 +555,48 @@ class Trainer:
             ) from error
         state.step, state.epoch = int(restored["step"]), int(restored["epoch"])
         return state
+
+
+class _Checkpoints:
+    """The train loop's checkpoints: saved in the single-device layout by
+    the leader; on a mesh every rank gathers (``Trainer.checkpoint_state``)
+    and knows the latest step saved, so that all take the same decisions."""
+
+    def __init__(self, trainer: Trainer, logdir: Path, max_to_keep: int):
+        self.trainer = trainer
+        self.manager = (CheckpointManager(logdir, max_to_keep=max_to_keep)
+                        if trainer.is_leader else None)
+        latest = self.manager.latest_step() if self.manager is not None else None
+        mesh = trainer.mesh
+        if mesh is not None and mesh.group is not None:
+            known = torch.tensor([-1 if latest is None else latest], device=mesh.device)
+            mesh_lib.broadcast_(known, mesh.leader, mesh.group)
+            latest = None if int(known) < 0 else int(known)
+        self.latest = latest
+
+    def save(self, step: int, state: TrainState) -> None:
+        saved = self.trainer.checkpoint_state(state)
+        if self.manager is not None:
+            self.manager.save(step, saved)
+        mesh = self.trainer.mesh
+        if mesh is not None and mesh.group is not None:
+            # Written before any rank goes on (and might restore it).
+            mesh_lib.broadcast_(torch.zeros(1, device=mesh.device), mesh.leader, mesh.group)
+        self.latest = step
+
+    def wait(self) -> None:
+        if self.manager is not None:
+            self.manager.wait()
+
+
+class _NoMetrics:
+    """The metrics writer of a rank other than the leader."""
+
+    def scalar(self, *args) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -281,10 +281,12 @@ def test_device_cuda_fails_cleanly_without_a_card(trained, tmp_path):
 def test_unported_choices_fail_with_their_roadmap_item(workspace, preprocessed, trained,
                                                        tmp_path):
     root, config, _ = workspace
+    # A --model-parallel that does not divide the 2 heads is a usage error,
+    # raised before any rank starts.
     result = invoke(port_cli.cli, "--device", "cpu", "train", "transformer",
-                    preprocessed["port"], "-c", config, "--model-parallel", 2,
+                    preprocessed["port"], "-c", config, "--model-parallel", 3,
                     "--logdir", tmp_path)
-    assert result.exit_code == 2 and "Queue 1 item 8" in result.output
+    assert result.exit_code == 2 and "does not divide the 2 attention heads" in result.output
     assert not list(tmp_path.iterdir())  # no logdir left behind
     # .tfrecord datasets are read as the JAX CLI reads them: an empty file
     # raises the JAX reader's DatasetError.

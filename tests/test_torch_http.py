@@ -634,14 +634,19 @@ def test_server_admits_a_burst_of_connections():
 
 
 def test_service_devices_and_refusals():
-    """The card by default, raising where torch has no CUDA; a mesh is
-    refused with its ROADMAP item."""
+    """The card by default, raising where torch has no CUDA; a mesh whose
+    model degree does not divide the heads is refused (the JAX package falls
+    back to its band path there; ROADMAP Queue 3). No ranks are started."""
+    from composer_tpu_torch.parallel import Mesh
+
     model = _pair()[2]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             GenerationService(model, ModelType.TRANSFORMER, None, VOCAB)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        GenerationService(model, ModelType.TRANSFORMER, None, VOCAB, mesh=object(),
+    mesh = Mesh(data=1, model=3, rank=0, data_index=0, model_index=0, ranks=(0, 1, 2),
+                device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="heads 2 not divisible by model=3"):
+        GenerationService(model, ModelType.TRANSFORMER, None, VOCAB, mesh=mesh,
                           device="cpu")
 
 

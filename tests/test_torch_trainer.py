@@ -230,6 +230,13 @@ def test_train_loop_checkpoints_and_resumes(tmp_path):
 
 
 def test_unported_options_raise():
+    """A mesh whose model degree does not divide the heads: the JAX package
+    falls back to its band path there, the port refuses the mesh (ROADMAP
+    Queue 3). No ranks are started."""
+    from composer_tpu_torch.parallel import Mesh
+
     model = Transformer(TransformerConfig(**_kwargs()))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Trainer(model, ModelType.TRANSFORMER, LR, mesh=object(), device="cpu")
+    mesh = Mesh(data=1, model=3, rank=0, data_index=0, model_index=0, ranks=(0, 1, 2),
+                device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="heads 2 not divisible by model=3"):
+        Trainer(model, ModelType.TRANSFORMER, LR, mesh=mesh, device="cpu")
