@@ -298,6 +298,19 @@ Phases (any failure exits non-zero):
    on this path (the JAX package's LSTM is an XLA scan; the port's is
    cuDNN's), so no kernel's count moves. About 12 s.
 
+13. The mesh on the one card (``mesh_path``): two gloo ranks, tensor and
+   data parallel training, a checkpoint and ``GenerationService(mesh=)``.
+
+14. The port's bench (``bench_path``, ``composer_tpu_torch/bench.py``):
+   ``bench.headline()`` at full width (8 x (10 + 1014) and 1 x (10 + 1024)
+   through ``generate_ids(engine="auto")``) must launch ``decode_generate``
+   at B=8 and B=1, report on-device seconds (CUDA events) no larger
+   than its wall seconds and, at B=8, within 10% of phase 3's kernel time;
+   then every other ``run_*`` once at a size cut for time that still
+   reaches its kernel (``BENCH_CASES``), each returning the schema with no
+   error and the launches of the kernel it names; and the CLI's
+   ``benchmark --length 64 --batch-size 8`` in process, one JSON line.
+
 Prints the card line, a JSON line describing each kernel (with its bound:
 the larger of bytes over 3.35 TB/s and operations over 989 TFLOP/s, the
 H100 SXM's published peaks, the resident decode kernels' bytes counting
@@ -312,7 +325,8 @@ the flash kernels ``library``, the SDPA backend timed as ``library_ms``, and
 ``train_step_ms``, phase 5d's step times; ``http_launches``,
 the kernel's launches in phase 10 (a)-(d), read from its wrapper's count;
 ``cli_launches``, its launches in phase 11, in process and behind both
-servers), then, as the last line,
+servers; ``mesh_launches``, each rank's in phase 13; ``bench_launches``,
+phase 14's), then, as the last line,
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-planted-faults
@@ -4624,6 +4638,104 @@ def mesh_path(device, card: str) -> dict:
     return {"launches": [r["launches"] for r in results], "seconds": elapsed}
 
 
+# Phase 14: each bench row but the headline, cut for time where its default
+# would take seconds, with the launch counts (``ops.launch_counts`` keys) of
+# which at least one must rise (none for the rows that run no kernel).
+BENCH_CASES = (
+    ("speculative", lambda b: b.run_speculative_benchmark(length=256), ("spec", "single")),
+    ("batched decode", lambda b: b.run_batched_decode_benchmark(batch_size=4, length=64,
+                                                                repeats=1), ("batched",)),
+    ("wide int8", lambda b: b.run_wide_int8_decode_benchmark(batch_size=2, length=64),
+     ("wide",)),
+    ("wide int8 K/V", lambda b: b.run_wide_int8_kv_decode_benchmark(batch_size=2, length=64),
+     ("wide",)),
+    ("Poisson, continuous", lambda b: b.run_poisson_serving_benchmark(requests=6, length=64),
+     ("segment",)),
+    ("Poisson, run-to-completion", lambda b: b.run_poisson_serving_benchmark(
+        continuous=False, requests=6, length=64), ("batched", "single")),
+    ("Poisson, embed 1024 continuous", lambda b: b.run_poisson_serving_benchmark(
+        requests=4, length=64, slots=4, embed_dim=1024, mean_interarrival_ms=150.0,
+        temperature=0.0), ("segment_wide",)),
+    ("serving", lambda b: b.run_serving_benchmark(concurrency=4, length=256), ("batched",)),
+    ("overload soak", lambda b: b.run_overload_soak_benchmark(duration_s=2.0, lengths=(64, 128)),
+     ("segment",)),
+    ("long prompt", lambda b: b.run_long_prompt_serving_benchmark(requests=2), ("segment",)),
+    ("train, flash", lambda b: b.run_train_benchmark(batch_size=2, window_size=1024, steps=2,
+                                                     use_pallas_attention=True),
+     ("flash_fwd mma 16", "flash_bwd mma 16")),
+    ("MusicRNN train", lambda b: b.run_rnn_train_benchmark(steps=2), ()),
+    ("MusicRNN decode", lambda b: b.run_rnn_decode_benchmark(length=128, repeats=1), ()),
+    ("preprocess", lambda b: b.run_preprocess_benchmark(num_files=4, num_workers=2,
+                                                        scaling_workers=()), ()),
+)
+
+
+def bench_path(card: str, decode_ms: dict) -> dict:
+    """Phase 14: the bench module and the CLI's ``benchmark`` on the card
+    (see the module docstring). ``decode_ms`` holds phase 3's kernel times;
+    returns the launches of the phase by ``ops.launch_counts`` key."""
+    import io
+
+    from composer_tpu_torch import bench, cli
+
+    phase_start = time.perf_counter()
+    reset_kernel_launch_counts()
+
+    line = bench.headline()
+    detail, batch1 = line["detail"], line["detail"]["batch1"]
+    print(f"bench headline: {line['value']} events/s at 8 x 1014 (wall {detail['seconds']} s, "
+          f"on device {detail['on_device_seconds']} s against phase 3's kernel "
+          f"{decode_ms['batched'] / 1e3:.4f} s); batch1 {batch1} [{card}]", flush=True)
+    if "error" in batch1:
+        raise AssertionError(f"bench headline batch1: {batch1['error']}")
+    if not detail["launches"].get("batched") or not batch1["launches"].get("single"):
+        raise AssertionError(f"bench headline launches {detail['launches']} / "
+                             f"{batch1['launches']}: decode_generate not taken at B=8 and B=1")
+    for name, part in (("B=8", detail), ("B=1", batch1)):
+        if part["on_device_seconds"] is None or part["seconds"] < part["on_device_seconds"]:
+            raise AssertionError(f"bench headline {name}: wall {part['seconds']} s against "
+                                 f"on-device {part['on_device_seconds']} s")
+    if abs(detail["on_device_seconds"] * 1e3 - decode_ms["batched"]) > 0.1 * decode_ms["batched"]:
+        raise AssertionError(f"bench headline on-device {detail['on_device_seconds']} s is not "
+                             f"within 10% of phase 3's {decode_ms['batched']:.2f} ms")
+
+    for name, run, kernels in BENCH_CASES:
+        start = time.perf_counter()
+        result = run(bench)
+        if "error" in result or not {"metric", "value", "unit", "vs_baseline",
+                                     "detail"} <= set(result):
+            raise AssertionError(f"bench {name}: {result}")
+        launches = result["detail"].get("launches", {})
+        print(f"bench {name}: {result['metric']} {result['value']} {result['unit']}, "
+              f"launches {launches}, {time.perf_counter() - start:.1f} s; "
+              f"{json.dumps(result['detail'])[:600]}", flush=True)
+        if kernels and not any(launches.get(key) for key in kernels):
+            raise AssertionError(f"bench {name}: none of {kernels} launched ({launches})")
+        if name == "overload soak" and result["detail"]["other_errors"]:
+            raise AssertionError(f"bench {name}: {result['detail']['other_errors']} requests "
+                                 "failed")
+
+    # The CLI's command in process, its stdout captured.
+    before = kernel_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.cli.main(["benchmark", "--length", "64", "--batch-size", "8"],
+                            standalone_mode=False)
+    lines = [text for text in out.getvalue().splitlines() if text.startswith("{")]
+    result = json.loads(lines[-1]) if len(lines) == 1 else {}
+    after = kernel_launch_counts()
+    print(f"bench CLI benchmark --length 64 --batch-size 8: exit {code}, {lines}", flush=True)
+    if code not in (None, 0) or not {"metric", "value", "unit", "vs_baseline",
+                                     "detail"} <= set(result) or \
+            after["batched"] <= before["batched"]:
+        raise AssertionError(f"bench CLI: exit {code}, output {out.getvalue()[-2000:]}")
+
+    launches = kernel_launch_counts()
+    print(f"phase 14 launches {({k: v for k, v in launches.items() if v})}; took "
+          f"{time.perf_counter() - phase_start:.1f} s (host clock)", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -4733,6 +4845,8 @@ def main() -> int:
     phase_done("phase 12")
     mesh = mesh_path(device, card)
     phase_done("phase 13")
+    bench_launches = bench_path(card, {"batched": times["batched"][0]})
+    phase_done("phase 14")
 
     source = "composer_tpu_torch/csrc/decode_generate.cu"
     num_steps = PROMPT_EVENTS + GENERATE_EVENTS - 1
@@ -4822,6 +4936,7 @@ def main() -> int:
             name = entry["name"].replace("_attention", "")
             key = f"{name} {entry['variant']} {entry['head_dim']}"
         entry["mesh_launches"] = [launches[key] for launches in mesh["launches"]]
+        entry["bench_launches"] = bench_launches[key]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

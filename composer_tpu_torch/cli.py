@@ -7,7 +7,7 @@ options, defaults and exit codes: ``make-config``, ``preprocess``,
 ``export-dataset``, ``summary``, ``visualize-training``, ``train``,
 ``evaluate``, ``generate``, ``synthesize``, ``serve``, ``profile`` and
 ``import-checkpoint``, for both model types (``transformer``,
-``music_rnn``). The data commands (``make-config``, ``preprocess``,
+``music_rnn``), and ``benchmark``. The data commands (``make-config``, ``preprocess``,
 ``export-dataset``, ``visualize-training``, ``synthesize``) write or print
 what the JAX package's do, byte for byte, and the commands that build a
 model run on the device that ``--device`` names: the CUDA card by default,
@@ -33,8 +33,9 @@ What differs from the JAX CLI:
 * the ``dropout_rng_impl`` config key (a TPU dropout-generator choice) is
   read and dropped: dropout draws from a ``torch.Generator`` seeded by
   ``--seed``;
-* ``benchmark`` is not registered: it waits for the port's bench
-  (ROADMAP.md, Queue 1 item 3).
+* ``benchmark`` runs ``composer_tpu_torch/bench.py``'s decode workload on
+  ``--device`` (its ``vs_baseline`` is None: the JAX package's target is a
+  TPU's).
 
 Deliberate fixes over the reference, as in the JAX CLI: ``--seed`` seeds the
 RNGs; ``--num-workers`` is honoured; ``generate`` decodes with a KV cache
@@ -94,7 +95,7 @@ def get_device():
 @click.option("--seed", type=int, default=None, help="Sets the seed of the random engine.")
 @click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda",
               help="The device that the commands which build a model (train, evaluate, "
-                   "generate, serve, summary, profile, import-checkpoint) run on: "
+                   "generate, serve, summary, profile, import-checkpoint, benchmark) run on: "
                    "'cuda' (the card, the default) or 'cpu'.")
 def cli(verbosity, seed, device):
     """A deep learning enabled music generator (PyTorch, on an NVIDIA card)."""
@@ -1053,6 +1054,21 @@ def profile(model_type, output_dir, config_filepath, steps, decode_length):
         "Wrote a profiler trace of %d train steps + a %d-event decode to '%s'.",
         steps, decode_length, output_dir / "trace.json",
     )
+
+
+@cli.command()
+@click.option("--length", default=1024, help="Decode length in events. Defaults to 1024.")
+@click.option("--batch-size", default=1, help="Decode batch size. Defaults to 1.")
+@click.option("--use-relative-attention/--no-use-relative-attention", default=False)
+def benchmark(length, batch_size, use_relative_attention):
+    """Measures KV-cached decode throughput on the default Transformer."""
+    from composer_tpu_torch.bench import run_decode_benchmark
+
+    result = run_decode_benchmark(
+        length=length, batch_size=batch_size,
+        use_relative_attention=use_relative_attention, device=get_device(),
+    )
+    print(json.dumps(result))
 
 
 def main():

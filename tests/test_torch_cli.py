@@ -139,7 +139,7 @@ def test_help_lists_the_commands():
     assert result.returncode == 0, result.stderr
     for command in ("make-config", "preprocess", "train", "evaluate", "generate", "serve",
                     "import-checkpoint", "export-dataset", "summary", "visualize-training",
-                    "synthesize", "profile"):
+                    "synthesize", "profile", "benchmark"):
         assert command in result.stdout
 
 

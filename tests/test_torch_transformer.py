@@ -147,7 +147,8 @@ def test_port_imports_no_jax():
         "'composer_tpu_torch.utils', 'composer_tpu_torch.logging_utils', "
         "'composer_tpu_torch.click_utils', 'composer_tpu_torch.midi.fast_encode', "
         "'composer_tpu_torch.midi.serialization', 'composer_tpu_torch.data.preprocess', "
-        "'composer_tpu_torch.models.music_rnn', 'composer_tpu_torch.train.import_reference'} "
+        "'composer_tpu_torch.models.music_rnn', 'composer_tpu_torch.train.import_reference', "
+        "'composer_tpu_torch.bench'} "
         "- set(names)\n"
         "print(len(names), 'modules;', bad, 'missing', missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n"
